@@ -1,0 +1,135 @@
+"""Build and load the port's CUDA kernels (``kernels/csrc/*.cu``).
+
+At first use on the card, every source is compiled with ``nvcc`` for
+Hopper (``-gencode arch=compute_90a,code=sm_90a``) into one shared
+library with a plain C interface, loaded with ``ctypes``. Nothing is
+compiled or imported at module import, so ``import repro_torch`` works on
+a host with no CUDA toolkit.
+
+The library lands in ``build/repro_torch/`` at the repository root (an
+ignored directory) under a name carrying a hash of the sources and the
+flags, so a stale build is never loaded. ``nvcc`` is looked up on
+``PATH``, then under ``$CUDA_HOME/bin``, then at
+``/usr/local/cuda/bin/nvcc``; a missing compiler raises.
+
+``launch`` is the one place a kernel is launched: it calls the C entry,
+raises on a non-zero ``cudaGetLastError()``, and counts the launch in
+``LAUNCHES`` (plain ints, keyed by entry name).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry -> argument types; every entry returns cudaGetLastError() as int
+ENTRIES = {
+    "ragged_gf256_tiles": (_P, _P, _P, _I, _I, _I, _P),
+    "ragged_xor_tiles": (_P, _P, _I, _I, _I, _P),
+    "ragged_gf256_encode_tiles": (_P, _P, _P, _I, _I, _I, _P),
+    "ragged_xor_encode_tiles": (_P, _P, _I, _I, _I, _P),
+}
+LAUNCHES: dict[str, int] = {name: 0 for name in ENTRIES}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+build_seconds: float | None = None  # wall time of this process's build
+build_log: str = ""  # nvcc's output (ptxas register / shared-memory report)
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for cand in candidates:
+        if os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found on PATH, under $CUDA_HOME/bin or at "
+        "/usr/local/cuda/bin/nvcc: the CUDA kernels cannot be built"
+    )
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libragged_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the sources unless a library with their hash exists. The
+    output is written to a temporary name and renamed into place, so a
+    concurrent process never loads a half-written file."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.ragged_error_string.argtypes = [ctypes.c_int]
+            lib.ragged_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Launch C entry ``name`` and count it; raise if CUDA refused it."""
+    lib = library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.ragged_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0

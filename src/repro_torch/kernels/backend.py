@@ -1,0 +1,48 @@
+"""Device resolution and host/device helpers for the port's kernel stack.
+
+``device=None`` (or ``"cuda"``) everywhere in the port means "the card":
+it resolves to ``cuda:0`` and RAISES when no CUDA device is present.
+The CPU is taken only when a caller names it (``device="cpu"``), which
+is what the tests do: on a CPU tensor every kernel wrapper runs its
+plain torch version of the same tile algebra. There is no silent CPU
+fallback anywhere.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None``/``"cuda"`` -> ``cuda:0`` (raises without CUDA); ``"cpu"``
+    -> the CPU; ``"cuda:<i>"`` -> that card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {device!r} (want 'cuda' or 'cpu')")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is present; pass device='cpu' to run the plain "
+            "torch path on the host"
+        )
+    return torch.device("cuda", 0 if dev.index is None else dev.index)
+
+
+def as_u8(x, device: str | torch.device | None = None) -> torch.Tensor:
+    """``x`` (numpy array or tensor) as a uint8 tensor. A tensor stays on
+    its own device unless ``device`` names another; a numpy array goes
+    to ``resolve_device(device)``."""
+    if isinstance(x, torch.Tensor):
+        t = x if device is None else x.to(resolve_device(device))
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
+    return t if t.dtype == torch.uint8 else t.to(torch.uint8)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (no-op on the CPU): the port's
+    counterpart of ``jax.block_until_ready`` before a clock read."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,132 @@
+"""Sim-time observability plane: spans, streaming metrics, Perfetto
+export and critical-path accounting for the gateway stack.
+
+Everything here runs over the SIMULATED clock — spans measure simulated
+seconds, not wall time — and is observation-only by contract: enabling
+tracing never changes event ordering, simulated timestamps, or payload
+bytes (tests/test_obs.py pins traced ≡ untraced fingerprints).
+
+Span taxonomy
+=============
+
+Request traces (one per completed GET/PUT; ``trace_id`` doubles as the
+root span id so children parent on it before the root is finalized):
+
+  ``request``        root span [arrival, completion]; attrs: object_id,
+                     kind, tenant, degraded, bytes, cache_hits, fetch_at
+  ``plan``           instant at plan time; attrs: degraded, sources,
+                     decodes (instants for admission estimate too)
+  ``fetch``          one per fabric-fetched source block
+                     [fetch start, block landed]; attrs: key, src, bytes
+  ``cache.hit``      instant per cache-served source block
+  ``decode``         one per (request, decode op): the launch interval
+                     that completed the op [engine start, engine end];
+                     attrs: kind, launch_id, fraction, tiles, op (window
+                     op index), shared (co-owning requests),
+                     op_ready (own sources landed),
+                     ready (launch-wide source barrier)
+  ``verify``         instant at delivery (ground-truth check, 0 sim cost)
+  ``hedge``          one per speculative alternate-path fetch racing a
+                     slow direct fetch [hedge launch, last hedge source
+                     landed]; attrs: key, kind (V|H), won, attempt
+  ``corrupt``        instant at digest-mismatch detection (corruption
+                     reclassified as an erasure); attrs: key, source
+                     (read | scrub | write | repair)
+
+Infrastructure tracks (emitted into whichever request/repair trace
+caused the work):
+
+  ``xfer``           fabric transfer [first byte, last byte] on the
+                     SOURCE port's track; attrs: src, dst, bytes,
+                     tenant, wait (queueing before the first quantum)
+  ``engine.launch``  engine occupancy [start, end] on the engine's track
+
+Repair traces (one per background-repair run):
+
+  ``repair.run``     root span over the run; attrs: groups, healed
+  ``pacing``         instant per closed-loop share decision; attrs:
+                     share, observed_p99, pressure
+  ``repair.group``   one group's fix [detection, fabric makespan];
+                     attrs: group, mode, blocks_repaired, recovered
+  ``repair.fetch``   one repair step's source gathering; attrs: kind,
+                     blocks
+  ``repair.decode``  the repair's decode billing on the engine pool
+  ``repair.heal``    instant when a block becomes readable again
+
+Scrub traces (one per background scrub tick, on the repair track):
+
+  ``scrub.run``      root span over the tick; attrs: scanned, found
+                     (``corrupt`` instants for blocks it catches parent
+                     on it)
+
+Track layout (Perfetto: one process per group, one thread per member):
+
+  ``("tenant", <tenant>)``   request roots + per-request stages
+  ``("engine", engine<i>)``  decode-engine occupancy
+  ``("fabric", port<n>)``    per-send-port transfers
+  ``("repair", repair)``     background repair activity
+
+Sampling: ``Tracer(sample=...)`` takes ``"always"``, ``"head:N"``,
+``"tail:SECONDS"`` or comma-combinations (keep if ANY matches), so
+tail-latency traces are never dropped while steady-state traffic can be
+heavily sampled. Spans land in a bounded ring buffer (``capacity``).
+
+Metrics: ``MetricsRegistry`` (labeled counters / gauges / log-binned
+histograms), ``P2Quantile``, ``StreamHist``, and the list-compatible
+``BoundedSamples`` / ``BoundedLog`` that replaced ``GatewayReport``'s
+unbounded per-request lists — resident memory stays O(1) in trace
+length.
+
+Analysis: ``critical_path`` cuts one request's latency into additive
+stages (admission / fetch / batch_wait / engine_wait / decode /
+deliver); ``stage_shares`` aggregates a run into shares summing to 1.0;
+``launch_amortization`` reports how ops shared physical launches.
+Export: ``write_chrome_trace`` / ``validate_chrome_trace`` produce and
+check Perfetto-loadable JSON (see examples/gateway_serving.py --trace).
+"""
+
+from repro_torch.obs.critical_path import (
+    PathBreakdown,
+    STAGES,
+    critical_path,
+    launch_amortization,
+    stage_shares,
+)
+from repro_torch.obs.export import (
+    to_chrome_trace,
+    validate_chrome_trace,
+    validate_file,
+    write_chrome_trace,
+)
+from repro_torch.obs.metrics import (
+    BoundedLog,
+    BoundedSamples,
+    Counter,
+    Gauge,
+    MetricsRegistry,
+    P2Quantile,
+    StreamHist,
+)
+from repro_torch.obs.tracer import NULL_TRACER, Span, Tracer
+
+__all__ = [
+    "NULL_TRACER",
+    "STAGES",
+    "BoundedLog",
+    "BoundedSamples",
+    "Counter",
+    "Gauge",
+    "MetricsRegistry",
+    "P2Quantile",
+    "PathBreakdown",
+    "Span",
+    "StreamHist",
+    "Tracer",
+    "critical_path",
+    "launch_amortization",
+    "stage_shares",
+    "to_chrome_trace",
+    "validate_chrome_trace",
+    "validate_file",
+    "write_chrome_trace",
+]

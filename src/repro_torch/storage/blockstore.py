@@ -1,0 +1,351 @@
+"""Simulated distributed block store (the HDFS analogue).
+
+Blocks are addressed by (group_id, row, col) — a cell of a CORE matrix
+(for plain RS groups, row is always 0). Placement is anti-colocating like
+HDFS-RAID's RaidNode policy: all blocks of a group land on distinct
+nodes, so a node failure costs each group at most one block — the failure
+model under which the paper's per-column/-row analysis holds.
+
+Rack awareness (XORing Elephants, 1301.3791): when ``nodes_per_rack``
+is set, nodes are partitioned into failure domains of that size and
+placement lifts the anti-colocation invariant from nodes to racks — no
+two blocks of the same row OR column share a rack, so a whole-rack
+failure (ToR switch, PDU) still costs each stripe and each vertical
+group at most one block. With ``nodes_per_rack=None`` every node is its
+own rack and the classic layout is byte-identical to before.
+
+Data lives in host numpy (this is the "disk"); codec math runs in JAX.
+
+Integrity plane: every stored block carries a crc32 digest computed at
+PUT time (``checksums``). ``verify`` recomputes a block's digest against
+the stored one — a mismatch means SILENT corruption (a bit flip or torn
+write injected by ``corrupt_block`` leaves the stored digest stale on
+purpose, exactly like a disk returning bad bytes under a good extent
+map). The gateway reclassifies a verify failure as an erasure:
+``quarantine`` removes the bytes from the readable set while keeping the
+placement and the reference digest, so repair re-places the block in
+situ and the repaired bytes can be checked against the original digest.
+"""
+
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass, field
+
+import numpy as np
+
+BlockKey = tuple[str, int, int]  # (group_id, row, col)
+
+
+class PlacementError(RuntimeError):
+    pass
+
+
+@dataclass
+class BlockStore:
+    num_nodes: int
+    nodes_per_rack: int | None = None
+    blocks: dict[BlockKey, np.ndarray] = field(default_factory=dict)
+    placement: dict[BlockKey, int] = field(default_factory=dict)
+    failed_nodes: set[int] = field(default_factory=set)
+    checksums: dict[BlockKey, int] = field(default_factory=dict)
+    _group_counter: int = 0
+
+    # -- failure domains -------------------------------------------------------
+    def rack_of(self, node: int) -> int:
+        """Failure-domain id of ``node``. With no rack map configured,
+        every node is its own rack (node-level anti-colocation only)."""
+        if self.nodes_per_rack is None:
+            return int(node)
+        return int(node) // self.nodes_per_rack
+
+    # -- integrity -------------------------------------------------------------
+    @staticmethod
+    def digest(data: np.ndarray) -> int:
+        """crc32c-style content digest of a block's bytes."""
+        return zlib.crc32(np.asarray(data).tobytes())
+
+    # -- placement -----------------------------------------------------------
+    def _place_group(self, group_id: str, rows: int, cols: int) -> None:
+        """Anti-colocated placement of a (rows x cols) group.
+
+        All-distinct when the cluster is big enough; otherwise a
+        latin-square-style layout — node(r,c) = (off + c + K*r) mod N —
+        guaranteeing no two blocks of the same row OR column share a
+        node (one node failure => at most one failure per stripe and
+        per vertical group), which is the paper's placement requirement
+        for its 20-node clusters."""
+        need = rows * cols
+        alive = [n for n in range(self.num_nodes) if n not in self.failed_nodes]
+        # crc32, not hash(): placement must be stable across processes
+        # (PYTHONHASHSEED randomizes str hashes per run)
+        salt = zlib.crc32(group_id.encode()) ^ self._group_counter
+        offset = salt % len(alive)
+        self._group_counter += 1
+        if self.nodes_per_rack is not None:
+            self._place_group_rack_aware(group_id, rows, cols, alive, salt)
+            return
+        if need <= len(alive):
+            chosen = [alive[(offset + i) % len(alive)] for i in range(need)]
+            i = 0
+            for r in range(rows):
+                for c in range(cols):
+                    self.placement[(group_id, r, c)] = chosen[i]
+                    i += 1
+            return
+        n = len(alive)
+        if max(rows, cols) > n:
+            raise PlacementError(
+                f"group {group_id} needs >= {max(rows, cols)} nodes for "
+                f"row/column anti-colocation, {n} alive"
+            )
+        k_step = next(
+            (k for k in range(1, n) if all((k * d) % n for d in range(1, rows))),
+            None,
+        )
+        if k_step is None:
+            raise PlacementError(f"no anti-colocating stride for {rows}x{cols} on {n}")
+        for r in range(rows):
+            for c in range(cols):
+                self.placement[(group_id, r, c)] = alive[(offset + c + k_step * r) % n]
+
+    def _place_group_rack_aware(
+        self, group_id: str, rows: int, cols: int, alive: list[int], salt: int
+    ) -> None:
+        """Latin-square layout over RACKS instead of nodes: rack(r, c) =
+        racks[(off + c + step*r) mod R]. With R >= cols the racks within
+        a row are all distinct, and an anti-colocating stride keeps the
+        racks within a column distinct — one whole-rack failure costs
+        each stripe and each vertical group at most one block. Within a
+        rack, a per-group rotation spreads blocks over the rack's alive
+        nodes (distinct nodes whenever capacity allows)."""
+        racks: dict[int, list[int]] = {}
+        for n in alive:
+            racks.setdefault(self.rack_of(n), []).append(n)
+        rack_ids = sorted(racks)
+        n_racks = len(rack_ids)
+        if n_racks < cols:
+            raise PlacementError(
+                f"group {group_id}: rack-aware placement needs >= {cols} racks "
+                f"with alive nodes (one rack per stripe block), {n_racks} available"
+            )
+        step = next(
+            (s for s in range(1, n_racks) if all((s * d) % n_racks for d in range(1, rows))),
+            None,
+        )
+        if step is None:
+            raise PlacementError(
+                f"no anti-colocating rack stride for {rows}x{cols} over {n_racks} racks"
+            )
+        off = salt % n_racks
+        used: set[int] = set()
+        spin: dict[int, int] = {}
+        for r in range(rows):
+            for c in range(cols):
+                rid = rack_ids[(off + c + step * r) % n_racks]
+                members = racks[rid]
+                start = (salt + spin.get(rid, 0)) % len(members)
+                spin[rid] = spin.get(rid, 0) + 1
+                node = next(
+                    (
+                        members[(start + i) % len(members)]
+                        for i in range(len(members))
+                        if members[(start + i) % len(members)] not in used
+                    ),
+                    members[start],
+                )
+                used.add(node)
+                self.placement[(group_id, r, c)] = node
+
+    # -- block API ------------------------------------------------------------
+    def put_group(self, group_id: str, matrix: np.ndarray) -> None:
+        """Store a full (rows, cols, q) group."""
+        rows, cols = matrix.shape[:2]
+        self._place_group(group_id, rows, cols)
+        for r in range(rows):
+            for c in range(cols):
+                blk = np.asarray(matrix[r, c])
+                self.blocks[(group_id, r, c)] = blk
+                self.checksums[(group_id, r, c)] = self.digest(blk)
+
+    def put_block(self, key: BlockKey, data: np.ndarray, node: int | None = None) -> None:
+        cur = self.placement.get(key)
+        if node is not None:
+            self.placement[key] = node
+        elif cur is None or cur in self.failed_nodes:
+            # (re-)place on a fresh alive node not already used by the group
+            alive = [n for n in range(self.num_nodes) if n not in self.failed_nodes]
+            used = {
+                self.placement[k]
+                for k in self.placement
+                if k[0] == key[0] and self.available(k)
+            }
+            free = [n for n in alive if n not in used]
+            if free:
+                if self.nodes_per_rack is not None:
+                    # keep the rack invariant on repair write-back: avoid
+                    # racks already hosting a live block of this row/col
+                    gid, row, col = key
+                    bad_racks = {
+                        self.rack_of(self.placement[k])
+                        for k in self.placement
+                        if k[0] == gid
+                        and k != key
+                        and (k[1] == row or k[2] == col)
+                        and self.available(k)
+                    }
+                    rack_ok = [n for n in free if self.rack_of(n) not in bad_racks]
+                    if rack_ok:
+                        free = rack_ok
+                self.placement[key] = free[0]
+            else:
+                # dense cluster: every alive node already hosts a group
+                # block. Fall back to the weaker-but-essential invariant
+                # (the paper's placement requirement): never co-locate
+                # with another live block of the same ROW or COLUMN, so
+                # one node failure still costs each stripe and each
+                # vertical group at most one block.
+                gid, row, col = key
+                conflict = {
+                    self.placement[k]
+                    for k in self.placement
+                    if k[0] == gid
+                    and k != key
+                    and (k[1] == row or k[2] == col)
+                    and self.available(k)
+                }
+                if self.nodes_per_rack is not None:
+                    # rack-level anti-colocation first, node-level fallback
+                    bad_racks = {self.rack_of(n) for n in conflict}
+                    cands = [n for n in alive if self.rack_of(n) not in bad_racks]
+                    if not cands:
+                        cands = [n for n in alive if n not in conflict]
+                else:
+                    cands = [n for n in alive if n not in conflict]
+                if not cands:
+                    cands = alive
+                # crc32-keyed pick (process-stable, like _place_group):
+                # always taking the first candidate would funnel every
+                # dense re-placement onto the lowest alive ids and turn
+                # them into post-repair hotspots
+                self.placement[key] = cands[
+                    zlib.crc32(repr(key).encode()) % len(cands)
+                ]
+        blk = np.asarray(data)
+        self.blocks[key] = blk
+        self.checksums[key] = self.digest(blk)
+
+    def node_of(self, key: BlockKey) -> int:
+        return self.placement[key]
+
+    def available(self, key: BlockKey) -> bool:
+        return (
+            key in self.blocks
+            and self.placement.get(key) is not None
+            and self.placement[key] not in self.failed_nodes
+        )
+
+    def get(self, key: BlockKey) -> np.ndarray:
+        if not self.available(key):
+            raise KeyError(f"block {key} unavailable (node failed or missing)")
+        return self.blocks[key]
+
+    def verify(self, key: BlockKey) -> bool:
+        """Recompute ``key``'s digest against the one stored at PUT.
+        False means silent corruption. Blocks with no stored digest
+        (pre-integrity writers) pass vacuously."""
+        want = self.checksums.get(key)
+        if want is None or key not in self.blocks:
+            return True
+        return self.digest(self.blocks[key]) == want
+
+    def checksum_ok(self, key: BlockKey, data: np.ndarray) -> bool | None:
+        """Check reconstructed ``data`` against ``key``'s reference digest
+        (decode-output verification). None when no digest is on file."""
+        want = self.checksums.get(key)
+        if want is None:
+            return None
+        return self.digest(data) == want
+
+    def keys_on_node(self, node: int) -> list[BlockKey]:
+        """All block keys currently placed on ``node`` (whether or not the
+        node is alive) — the unit a node-level fault event acts on."""
+        return [k for k, n in self.placement.items() if n == node]
+
+    # -- failures --------------------------------------------------------------
+    def fail_nodes(self, nodes: set[int] | list[int]) -> None:
+        self.failed_nodes.update(int(n) for n in nodes)
+
+    def heal_node(self, node: int) -> None:
+        """Transient failure over: the node rejoins with its blocks
+        intact (a reboot / network partition, not a disk loss)."""
+        self.failed_nodes.discard(int(node))
+
+    def lose_node_blocks(self, node: int) -> list[BlockKey]:
+        """Permanent capacity loss: the node's blocks are destroyed (disk
+        failure). The node itself rejoins the alive set empty — only a
+        repair write-back can bring the data back. Returns the lost keys."""
+        lost = self.keys_on_node(node)
+        for key in lost:
+            self.blocks.pop(key, None)
+            self.placement.pop(key, None)
+            self.checksums.pop(key, None)
+        self.failed_nodes.discard(int(node))
+        return lost
+
+    # -- corruption ------------------------------------------------------------
+    def corrupt_block(self, key: BlockKey, mode: str = "bitflip") -> bool:
+        """Damage one stored block in place — the single implementation
+        behind both enforced-failure-pattern tests and the scenario
+        engine's ``CorruptionEvent``.
+
+        ``bitflip`` flips one bit at a key-derived offset; ``torn``
+        zeroes the trailing half (a torn write); both leave the stored
+        digest STALE, so the damage is silent until a fetch or scrub
+        verifies. ``erase`` destroys the bytes outright (the old
+        ``drop_block`` semantics). Returns False (no-op) when the block
+        holds no bytes to damage. Always writes a fresh array — callers
+        (the cache, test expectations) may hold references to the old
+        one."""
+        blk = self.blocks.get(key)
+        if blk is None:
+            return False
+        if mode == "erase":
+            self.blocks.pop(key, None)
+            return True
+        flat = np.asarray(blk).copy().reshape(-1).view(np.uint8)
+        if flat.size == 0:
+            return False
+        if mode == "bitflip":
+            pos = zlib.crc32(repr(key).encode()) % flat.size
+            flat[pos] ^= 1 << (zlib.crc32(repr(key).encode(), 7) % 8)
+        elif mode == "torn":
+            flat[flat.size // 2 :] = 0
+        else:
+            raise ValueError(f"unknown corruption mode {mode!r}")
+        self.blocks[key] = flat.view(np.asarray(blk).dtype).reshape(
+            np.asarray(blk).shape
+        )
+        return True
+
+    def quarantine(self, key: BlockKey) -> None:
+        """Detection outcome: pull corrupt bytes out of the readable set.
+        Placement and the reference digest survive, so repair re-puts the
+        block on its original node and the repaired bytes can be verified
+        against the original content digest."""
+        self.blocks.pop(key, None)
+
+    def drop_block(self, key: BlockKey) -> None:
+        """Targeted single-block erasure (for enforced failure patterns).
+        Thin wrapper over the unified corruption path."""
+        self.corrupt_block(key, mode="erase")
+
+    def failure_matrix(self, group_id: str, rows: int, cols: int) -> np.ndarray:
+        fm = np.zeros((rows, cols), dtype=bool)
+        for r in range(rows):
+            for c in range(cols):
+                fm[r, c] = not self.available((group_id, r, c))
+        return fm
+
+    def alive_nodes(self) -> list[int]:
+        return [n for n in range(self.num_nodes) if n not in self.failed_nodes]

@@ -1,0 +1,82 @@
+"""The port on the card: each CUDA tile kernel (K1-K4) against its plain
+torch version, and the codec's device path against its CPU path, byte
+for byte. Every test is marked ``cuda`` and skips without a CUDA device
+(the kernels are CUDA C++ and have no CPU mode). Imports nothing of JAX,
+so it runs where the port runs:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+
+import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core.product_code import CoreCode, CoreCodec  # noqa: E402
+from repro_torch.kernels import _build, ops, ragged_decode  # noqa: E402
+from repro_torch.kernels.gf256_matmul import expand_coeff_bitplanes  # noqa: E402
+
+# C entry -> (port entry, GF?)
+ENTRIES = {
+    "ragged_gf256_tiles": (ops.gf256_ragged, True),
+    "ragged_xor_tiles": (ops.xor_ragged, False),
+    "ragged_gf256_encode_tiles": (ops.gf256_ragged_encode, True),
+    "ragged_xor_encode_tiles": (ops.xor_ragged_encode, False),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the tile kernels are CUDA C++ with no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _run(name, mc, data, device):
+    fn, is_gf = ENTRIES[name]
+    d = torch.from_numpy(data).to(device)
+    out = fn(torch.from_numpy(mc).to(device), d) if is_gf else fn(d)
+    return out.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ENTRIES))
+def test_kernel_matches_plain(name, card):
+    """C in both chunk rungs, K in {1, 3, 6, 9}, TN in {128, 1024, 4096},
+    with and without zero padding (tails, K rows, a null tile)."""
+    rng = np.random.default_rng(7)
+    _build.reset_launches()
+    cases = 0
+    for c in (ragged_decode.CHUNK_SMALL, ragged_decode.CHUNK_BIG):
+        for kk in (1, 3, 6, 9):
+            for tn in (128, 1024, 4096):
+                for pad in (False, True):
+                    data = rng.integers(0, 256, (c, kk, tn), dtype=np.uint8)
+                    coef = rng.integers(0, 256, (c, kk), dtype=np.uint8)
+                    if pad:
+                        data[:, kk - kk // 2 :] = 0
+                        coef[:, kk - kk // 2 :] = 0
+                        data[:, :, tn - tn // 3 :] = 0
+                        data[-1] = 0
+                        coef[-1] = 0
+                    mc = expand_coeff_bitplanes(coef)
+                    np.testing.assert_array_equal(
+                        _run(name, mc, data, card), _run(name, mc, data, "cpu")
+                    )
+                    cases += 1
+    assert _build.LAUNCHES[name] == cases
+    assert sum(_build.LAUNCHES.values()) == cases
+
+
+@pytest.mark.cuda
+def test_codec_on_card_matches_cpu(card):
+    rng = np.random.default_rng(3)
+    code = CoreCode(9, 6, 3)
+    objs = rng.integers(0, 256, (3, 6, 4096), dtype=np.uint8)
+    on_card = CoreCodec(code, device="cuda").encode(objs)
+    assert on_card.device.type == "cuda"
+    mat = on_card.cpu().numpy()
+    np.testing.assert_array_equal(mat, CoreCodec(code, device="cpu").encode(objs).numpy())
+    assert CoreCodec(code).verify(mat)

@@ -1,0 +1,129 @@
+"""The port's import boundary and device contract: ``repro_torch`` loads
+with JAX blocked and pulls in nothing of ``repro``, and its entry points
+refuse to run when the card is asked for (the default) but absent."""
+
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_every_module_imports_without_jax_or_repro():
+    script = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None  # any `import jax` now raises
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = sorted(
+            m for m in sys.modules if m == "repro" or m.startswith("repro."))
+        assert not leaked, leaked
+        print(len(names))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script],
+        capture_output=True, text=True, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 30  # every subpackage was walked
+
+
+def test_no_jax_or_repro_import_lines():
+    pattern = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    hits = [
+        f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
+        for p in files
+        for m in pattern.finditer(p.read_text())
+    ]
+    assert not hits, hits
+
+
+def _entry_points():
+    from repro_torch.core.product_code import CoreCode, CoreCodec
+    from repro_torch.gateway import DecodeCoalescer, GatewayConfig, ObjectGateway
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.storage.blockstore import BlockStore
+    from repro_torch.storage.netmodel import ClusterProfile
+    from repro_torch.storage.repair import BlockFixer
+
+    code = CoreCode(9, 6, 3)
+    objs = np.zeros((3, 6, 16), dtype=np.uint8)
+    return {
+        "resolve_device": lambda: resolve_device(None),
+        "resolve_cuda": lambda: resolve_device("cuda"),
+        "codec": lambda: CoreCodec(code).encode(objs),
+        "coalescer": lambda: DecodeCoalescer(),
+        "fixer": lambda: BlockFixer(
+            BlockStore(num_nodes=60), code, ClusterProfile.network_critical()
+        ),
+        "gateway": lambda: ObjectGateway(
+            code, ClusterProfile.network_critical(), 60, GatewayConfig()
+        ),
+    }
+
+
+@pytest.mark.parametrize(
+    "name", ["resolve_device", "resolve_cuda", "codec", "coalescer", "fixer", "gateway"]
+)
+def test_default_device_raises_without_cuda(name, monkeypatch):
+    """No silent CPU fallback: the default device is the card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _entry_points()[name]()
+
+
+def test_cpu_is_taken_only_when_asked():
+    from repro_torch.kernels.backend import resolve_device
+
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
+    """A wrapper given a tensor that is not on the CPU launches its
+    kernel or raises; it never quietly computes the plain version."""
+    from repro_torch.kernels import _build, ragged_decode
+
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda *a: calls.append(a[0]))
+    meta = torch.zeros((4, 3, 128), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        ragged_decode.ragged_xor_tiles(meta)
+    assert not calls
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+
+
+def test_library_name_tracks_the_sources():
+    from repro_torch.kernels import _build
+
+    path = _build.library_path()
+    assert path.parent == ROOT / "build" / "repro_torch"
+    assert path.name.startswith("libragged_") and path.suffix == ".so"
+    assert [p.name for p in _build.sources()] == ["ragged_tiles.cu"]

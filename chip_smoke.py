@@ -13,20 +13,38 @@ Phases, in order; any failure raises and exits non-zero:
    ``torch.equal`` over C in {4, 32}, K in {1, 3, 6, 9}, TN in {128, 1024,
    4096} plus zero-padded tiles; then its time at the main-path shape
    (C = 32, TN = 4096, K = 6 for GF and 3 for XOR) beside the plain
-   version's and the least time the card could take;
+   version's and the least time the card could take. Then the matrix
+   kernels (K5, K6, K7, K7 batched) through ``kernels.ops`` against their
+   plain versions over M in {1, 3}, K in {1, 3, 6, 9}, B in {1, 4}, N in
+   {128, 4096, 5000, 2^20} (padding included); their times at the 64 MiB
+   main-path shapes; a ``block_n`` sweep of K6 and K7 batched at those
+   shapes (the autotuner's CUDA candidate sets come from it); and the
+   codec path at 64 MiB, driven with the launch counts set to 0: an
+   ``rs_encode`` of RS(9, 6), three blocks erased, ``rs_decode`` from the
+   six survivors, and a vertical XOR parity of three rows with one row
+   repaired from it (K5, K7);
 3. the gateway on a small trace, on the card and on the CPU, with
    modeled billing: per-request payload digests, flags and latencies
-   must agree;
-4. the main path at full width: ``ObjectGateway.serve`` on CORE (9, 6, 3)
-   with 64 MiB blocks (HDFS ``dfs.block.size``), 2 CORE groups on 60
-   simulated nodes, three failed nodes at time 0, and a 48-request GET/PUT
-   trace. Every GET is verified against ground truth, "H", "V", "EH" and
-   "EV" ops must all run, every kernel must have been launched, and the
-   parity audit must find no stale block. The serve runs under
-   ``torch.profiler`` (CUDA activity only), which gives the device's busy
-   time beside the serve's wall time.
+   must agree, for the ragged dataplane, the bucketed one, and a 2-shard
+   ``ShardedGateway``;
+4. the ragged path at full width: ``ObjectGateway.serve`` on CORE
+   (9, 6, 3) with 64 MiB blocks (HDFS ``dfs.block.size``), 2 CORE groups
+   on 60 simulated nodes, three failed nodes at time 0, and a 48-request
+   GET/PUT trace, with ``autotune=False``. Every GET is verified against
+   ground truth, "H", "V", "EH" and "EV" ops must all run, every tile
+   kernel must have been launched, and the parity audit must find no
+   stale block. The serve runs under ``torch.profiler`` (CUDA activity
+   only), which gives the device's busy time beside the serve's wall time;
+5. the bucketed path at full width: the same deployment and trace served
+   with ``coalesce="bucketed"`` and the default ``autotune=True`` (its
+   disk cache a fresh file under ``build/``), after phase 4's gateway is
+   freed. Every GET verified, "H" and "V" ran, K6 and K7 batched launched
+   beyond the autotune sweeps' probes, sweeps ran under ``cuda/`` keys,
+   and the parity audit is clean.
 
-The last three lines are the kernels' JSON record, the card's name and
+The last three lines are the kernels' JSON record (each kernel's
+``launches`` from the path that runs it: phase 4 for K1-K4, the codec
+path for K5 and K7, phase 5 for K6 and K7 batched), the card's name and
 power limit again, and the result line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -34,6 +52,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import statistics
@@ -59,6 +78,19 @@ KERNELS = (
     ("ragged_xor_encode_tiles", "src/repro/kernels/ragged_encode.py:89", False, 3),
 )
 SOURCE = "src/repro_torch/kernels/csrc/ragged_tiles.cu"
+# (C entry, TPU kernel it replaces, GF (else XOR), batched, main-path
+# shape: (B, M, K, N) for GF and (B, T, N) for XOR, B None when single)
+MATRIX_KERNELS = (
+    ("gf256_matmul_planes", "src/repro/kernels/gf256_matmul.py:100", True,
+     (None, 3, 6, BLOCK_BYTES)),
+    ("gf256_matmul_planes_batched", "src/repro/kernels/gf256_matmul.py:142", True,
+     (2, 1, 6, BLOCK_BYTES)),
+    ("xor_parity", "src/repro/kernels/xor_parity.py:35", False, (None, 3, BLOCK_BYTES)),
+    ("xor_parity_batched", "src/repro/kernels/xor_parity.py:56", False,
+     (2, 3, BLOCK_BYTES)),
+)
+MATRIX_SOURCE = "src/repro_torch/kernels/csrc/gf_matmul_xor.cu"
+SWEEP_BLOCK_N = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
 
 
 def log(msg: str) -> None:
@@ -185,46 +217,208 @@ def check_kernels(np, torch, seed: int) -> list[dict]:
     return rows
 
 
+def check_matrix_kernels(np, torch, seed: int) -> list[dict]:
+    """K5, K6, K7 and K7 batched through ``kernels.ops`` (padding to a
+    block_n multiple included) against their plain versions; then their
+    times at the 64 MiB main-path shapes and a block_n sweep."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.gf256_matmul import (
+        gf256_matmul_planes, gf256_matmul_planes_batched, gf_matmul_plain,
+    )
+    from repro_torch.kernels.xor_parity import xor_parity, xor_parity_batched, xor_rows_plain
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda", generator=gen)
+
+    cases = 0
+    for b in (1, 4):
+        for m in (1, 3):
+            for kk in (1, 3, 6, 9):
+                for n in (128, 4096, 5000, 1 << 20):
+                    data = rand(b, kk, n)
+                    coefs = rng.integers(0, 256, (b, m, kk), dtype=np.uint8)
+                    want = gf_matmul_plain(ops._planes(coefs, data.device), data)
+                    want_x = xor_rows_plain(data)
+                    got = {
+                        "gf256_matmul_planes_batched": (
+                            ops.gf256_matmul_batched(coefs, data), want),
+                        "gf256_matmul_planes": (ops.gf256_matmul(coefs[0], data[0]), want[0]),
+                        "xor_parity_batched": (ops.xor_parity_batched(data), want_x),
+                        "xor_parity": (ops.xor_parity(data[0]), want_x[0]),
+                    }
+                    torch.cuda.synchronize()
+                    for name, (g, w) in got.items():
+                        if not torch.equal(g, w):
+                            raise AssertionError(f"{name} != plain at B={b} M={m} K={kk} N={n}")
+                    cases += 1
+    log(f"matrix kernels: K5, K6, K7, K7 batched equal to plain on {cases} cases each")
+
+    rows = []
+    for name, replaces, is_gf, shape in MATRIX_KERNELS:
+        batched = shape[0] is not None
+        lead = (shape[0],) if batched else ()
+        if is_gf:
+            _b, m, kk, n = shape
+            data = rand(*lead, kk, n)
+            coefs = rng.integers(0, 256, (*lead, m, kk), dtype=np.uint8)
+            mc = ops._planes(coefs, data.device)
+            body = gf256_matmul_planes_batched if batched else gf256_matmul_planes
+            kernel = lambda bn=None, body=body, mc=mc, data=data: body(  # noqa: E731
+                mc, data, **({} if bn is None else {"block_n": bn}))
+            plain = lambda mc=mc, data=data: gf_matmul_plain(mc, data)  # noqa: E731
+            out_bytes = m * n
+            # a GF multiply and an XOR per source byte and target
+            nops = 2 * m * kk * n
+            kname = "gf_matmul_kernel"
+        else:
+            _b, t, n = shape
+            data = rand(*lead, t, n)
+            body = xor_parity_batched if batched else xor_parity
+            kernel = lambda bn=None, body=body, data=data: body(  # noqa: E731
+                data, **({} if bn is None else {"block_n": bn}))
+            plain = lambda data=data: xor_rows_plain(data)  # noqa: E731
+            out_bytes = n
+            nops = (t - 1) * n  # an XOR per extra row
+            kname = "xor_rows_kernel"
+        scale = shape[0] or 1
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = int((got.int() - want.int()).abs().max())
+        del got, want
+        if err:
+            raise AssertionError(f"{name}: max_abs_err {err} at the main-path shape")
+        ms = time_ms(torch, kernel, samples=15, per_sample=10)
+        plain_ms = time_ms(torch, plain, samples=5, per_sample=2)
+        dev_ms = device_ms(torch, kernel, kname, reps=20)
+        nbytes = data.numel() + scale * out_bytes
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = scale * nops / INT_OPS_PER_S * 1e3
+        sweep = {bn: time_ms(torch, lambda bn=bn: kernel(bn), samples=7, per_sample=5)
+                 for bn in SWEEP_BLOCK_N}
+        row = {
+            "name": name,
+            "route": "cuda",
+            "source": MATRIX_SOURCE,
+            "replaces": replaces,
+            "launches": 0,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,  # no single PyTorch call computes it
+            "device_ms": dev_ms,  # kernel alone, from the profiler trace
+        }
+        log(
+            f"kernel {name}: shape {shape} at the default block_n: kernel_ms={ms:.6f} "
+            f"device_ms={dev_ms} plain_ms={plain_ms:.6f} bound_ms={row['bound_ms']:.6f} "
+            f"({row['bound_by']}) library_ms=null"
+        )
+        log(f"kernel {name}: block_n sweep ms {json.dumps(sweep)}")
+        rows.append(row)
+        del data
+    torch.cuda.empty_cache()
+    return rows
+
+
+def codec_path(np, torch, seed: int) -> dict[str, int]:
+    """The single-op entries at 64 MiB, driven with the launch counts set
+    to 0: RS(9, 6) encode, three blocks erased, decode from the six
+    survivors (K5); a vertical XOR parity of three rows and one row
+    repaired from it (K7). Returns the launch counts of that run."""
+    from repro_torch.coding import rs
+    from repro_torch.kernels import _build, ops
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    data = torch.randint(0, 256, (6, BLOCK_BYTES), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+    rows = torch.randint(0, 256, (3, BLOCK_BYTES), dtype=torch.uint8, device="cuda",
+                         generator=gen)
+    code = rs.make_rs(9, 6)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    stripe = torch.cat([data, ops.rs_encode(rs.parity_matrix(9, 6), data)])
+    avail = np.asarray([c for c in range(9) if c not in (0, 4, 7)])
+    row_ids, inverse = code.decode_matrix(avail)
+    decoded = ops.rs_decode(inverse, stripe[torch.from_numpy(row_ids).cuda()])
+    vparity = ops.xor_parity(rows)
+    repaired = ops.xor_parity(torch.stack([rows[0], rows[2], vparity]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if not torch.equal(decoded, data):
+        raise AssertionError("codec path: rs_decode did not restore the erased stripe")
+    if not torch.equal(repaired, rows[1]):
+        raise AssertionError("codec path: the XOR repair did not restore the row")
+    used = {k: n for k, n in launches.items() if n}
+    if used != {"gf256_matmul_planes": 2, "xor_parity": 2}:
+        raise AssertionError(f"codec path launched {used}")
+    log(f"codec path: RS(9,6) encode + decode of 3 erased {BLOCK_BYTES}-byte blocks and a "
+        f"3-row XOR parity + repair restored every byte in {wall:.6f} s wall; launches {used}")
+    del data, rows, stripe, decoded, vparity, repaired
+    torch.cuda.empty_cache()
+    return launches
+
+
 def small_trace_agrees(np, seed: int) -> None:
     """The small gateway trace of the port's CPU tests, served on the
-    card and on the CPU under modeled billing: records must agree."""
+    card and on the CPU under modeled billing with autotune off: records
+    must agree, for the ragged dataplane, the bucketed one and a 2-shard
+    ShardedGateway."""
     from repro_torch.core.product_code import CoreCode
-    from repro_torch.gateway import GatewayConfig, ObjectGateway, WorkloadConfig
-    from repro_torch.gateway import generate_requests
+    from repro_torch.gateway import GatewayConfig, ObjectGateway, ShardedGateway
+    from repro_torch.gateway import WorkloadConfig, generate_requests
     from repro_torch.gateway.workload import FailureEvent
     from repro_torch.storage.netmodel import ClusterProfile
 
-    out = {}
-    for device in ("cuda", "cpu"):
-        code = CoreCode(9, 6, 3)
-        gw = ObjectGateway(
-            code, ClusterProfile.network_critical(), 60,
-            GatewayConfig(device=device, batch_window=0.01, record_payloads=True,
-                          decode_cost_per_tile=1e-5, encode_cost=2e-4),
-        )
-        rng = np.random.default_rng(seed)
-        gw.load_objects(rng.integers(0, 256, (12, code.k, 2048), dtype=np.uint8))
-        reqs = generate_requests(WorkloadConfig(
-            num_objects=12, num_requests=150, arrival_rate=3000.0,
-            put_fraction=0.15, seed=seed,
-        ))
-        keys = (("g0", 0, 0), ("g0", 1, 0), ("g1", 0, 2))
-        fails = [FailureEvent(time=0.005 + 0.01 * i, node=gw.store.node_of(k))
-                 for i, k in enumerate(keys)]
-        rep = gw.serve(reqs, fails)
-        out[device] = [
-            (r.time, r.object_id, r.kind, r.degraded, r.payload_digest, r.latency)
-            for r in rep.records
-        ]
-    if out["cuda"] != out["cpu"]:
-        raise AssertionError("small trace: card and CPU records differ")
-    log(f"small trace: {len(out['cuda'])} records identical on card and CPU")
+    variants = {
+        "ragged": ({"decode_cost_per_tile": 1e-5}, 1),
+        "bucketed": ({"coalesce": "bucketed", "decode_cost": 1e-4}, 1),
+        "sharded-2": ({"decode_cost_per_tile": 1e-5}, 2),
+    }
+    for label, (billing, shards) in variants.items():
+        out = {}
+        for device in ("cuda", "cpu"):
+            code = CoreCode(9, 6, 3)
+            cfg = GatewayConfig(device=device, autotune=False, batch_window=0.01,
+                                record_payloads=True, encode_cost=2e-4, **billing)
+            if shards == 1:
+                gw = ObjectGateway(code, ClusterProfile.network_critical(), 60, cfg)
+            else:
+                gw = ShardedGateway(code, ClusterProfile.network_critical(), 60, shards, cfg)
+            rng = np.random.default_rng(seed)
+            gw.load_objects(rng.integers(0, 256, (12, code.k, 2048), dtype=np.uint8))
+            reqs = generate_requests(WorkloadConfig(
+                num_objects=12, num_requests=150, arrival_rate=3000.0,
+                put_fraction=0.15, seed=seed,
+            ))
+            keys = (("g0", 0, 0), ("g0", 1, 0), ("g1", 0, 2))
+            fails = [FailureEvent(time=0.005 + 0.01 * i, node=gw.store.node_of(k))
+                     for i, k in enumerate(keys)]
+            rep = gw.serve(reqs, fails)
+            out[device] = [
+                (r.time, r.object_id, r.kind, r.degraded, r.payload_digest, r.latency)
+                for r in rep.records
+            ]
+        if out["cuda"] != out["cpu"]:
+            raise AssertionError(f"small trace ({label}): card and CPU records differ")
+        log(f"small trace ({label}): {len(out['cuda'])} records identical on card and CPU")
 
 
-def serve_full_width(np, seed: int) -> dict[str, int]:
+def serve_full_width(np, seed: int, *, coalesce: str, autotune: bool) -> dict:
+    """Serve the 64 MiB deployment once under torch.profiler with the
+    launch counts set to 0 just before; every GET must verify and the
+    parity audit must be clean. Returns the counts and the coalescer's
+    record (the gateway itself is freed on return)."""
     from repro_torch.core.product_code import CoreCode
     from repro_torch.gateway import GatewayConfig, ObjectGateway, WorkloadConfig
     from repro_torch.gateway import generate_requests
+    from repro_torch.gateway.coalescer import BUCKETED
     from repro_torch.gateway.workload import FailureEvent
     from repro_torch.kernels import _build
     from repro_torch.storage.netmodel import ClusterProfile
@@ -232,8 +426,8 @@ def serve_full_width(np, seed: int) -> dict[str, int]:
     code = CoreCode(9, 6, 3)
     gw = ObjectGateway(
         code, ClusterProfile.network_critical(), 60,
-        GatewayConfig(device="cuda", autotune=False, batch_window=0.01,
-                      record_payloads=True),
+        GatewayConfig(device="cuda", coalesce=coalesce, autotune=autotune,
+                      batch_window=0.01, record_payloads=True),
     )
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
@@ -242,6 +436,7 @@ def serve_full_width(np, seed: int) -> dict[str, int]:
     t0 = time.perf_counter()
     gw.load_objects(objects)
     load_s = time.perf_counter() - t0
+    del objects
     keys = (("g0", 0, 0), ("g0", 1, 0), ("g1", 0, 2))
     failures = [FailureEvent(time=0.0, node=gw.store.node_of(k)) for k in keys]
     reqs = generate_requests(WorkloadConfig(
@@ -257,7 +452,7 @@ def serve_full_width(np, seed: int) -> dict[str, int]:
         serve_s = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     # device time by activity over the serve (kernels and copies; the
-    # serve synchronizes after every chunk, so they do not overlap)
+    # serve synchronizes after every launch, so they do not overlap)
     device = sorted(
         ((ev.device_time_total, ev.count, ev.key) for ev in prof.key_averages()
          if getattr(ev, "device_time_total", 0.0)),
@@ -269,34 +464,87 @@ def serve_full_width(np, seed: int) -> dict[str, int]:
     audit_s = time.perf_counter() - t0
 
     st = gw.coalescer.stats
+    tag = f"serve[{coalesce}, autotune={autotune}]"
     gets = [r for r in report.records if r.kind == "get"]
     verified = report.metrics.counter_total("verified_gets")
     log(
-        f"serve: {len(report.records)} requests ({len(gets)} GETs, "
+        f"{tag}: {len(report.records)} requests ({len(gets)} GETs, "
         f"{sum(r.degraded for r in gets)} degraded) on {code} with "
         f"{BLOCK_BYTES}-byte blocks; wall s: data {gen_s:.3f} load {load_s:.3f} "
         f"serve {serve_s:.3f} audit {audit_s:.3f}"
     )
-    log(
-        f"serve: decode_launches={report.decode_launches} encode_calls={st.encode_calls} "
-        f"ops_by_kind={st.ops_by_kind} launches={launches} audit={audit}"
+    buckets = sorted(
+        (sig[1], sig[2], sig[3]) for sig in gw.coalescer._warm if sig[0] == BUCKETED
     )
-    log(f"serve: device busy {busy_s:.6f} s of {serve_s:.3f} s wall "
+    log(
+        f"{tag}: decode_launches={report.decode_launches} encode_calls={st.encode_calls} "
+        f"ops_by_kind={st.ops_by_kind} batch_hist={st.batch_hist} "
+        f"padded_ops={st.padded_ops} launches={launches} audit={audit}"
+    )
+    if buckets:
+        log(f"{tag}: bucket shapes launched ((kind, M, K), B_pad, N): {buckets}")
+    log(f"{tag}: device busy {busy_s:.6f} s of {serve_s:.3f} s wall "
         f"(share {busy_s / serve_s:.6f}; torch.profiler, CUDA activity)")
     for us, n, key in device[:8]:
-        log(f"serve device: {us / 1e3:.3f} ms in {n} x {key[:90]}")
+        log(f"{tag} device: {us / 1e3:.3f} ms in {n} x {key[:90]}")
     bad = [r for r in gets if r.latency is None or r.rejected or r.payload_digest is None]
     if not gets or bad or verified != len(gets):
-        raise AssertionError(f"GETs not all served and verified: {len(bad)} bad, "
+        raise AssertionError(f"{tag}: GETs not all served and verified: {len(bad)} bad, "
                              f"{verified} verified of {len(gets)}")
-    missing = [k for k in ("H", "V", "EH", "EV") if st.ops_by_kind.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"main path ran no {missing} ops")
-    idle = [name for name, n in launches.items() if n <= 0]
-    if idle:
-        raise AssertionError(f"kernels never launched on the main path: {idle}")
     if audit["stale_blocks"] != 0:
-        raise AssertionError(f"parity audit: {audit}")
+        raise AssertionError(f"{tag}: parity audit: {audit}")
+    return {"launches": launches, "ops_by_kind": dict(st.ops_by_kind),
+            "decode_launches": report.decode_launches}
+
+
+def serve_ragged(np, seed: int) -> dict[str, int]:
+    """Phase 4: the ragged path, autotune off, every tile kernel."""
+    run = serve_full_width(np, seed, coalesce="ragged", autotune=False)
+    missing = [k for k in ("H", "V", "EH", "EV") if run["ops_by_kind"].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"ragged path ran no {missing} ops")
+    tiles = [name for name, _r, _gf, _k in KERNELS]
+    idle = [name for name in tiles if run["launches"][name] <= 0]
+    if idle:
+        raise AssertionError(f"tile kernels never launched on the ragged path: {idle}")
+    return run["launches"]
+
+
+def serve_bucketed(np, seed: int) -> dict[str, int]:
+    """Phase 5: the bucketed path with the default autotune=True, its
+    disk cache a fresh file inside the checkout."""
+    from repro_torch.kernels import autotune
+
+    cache = ROOT / "build" / "chip_smoke_autotune.json"
+    cache.unlink(missing_ok=True)
+    autotune.set_cache_path(cache)
+    run = serve_full_width(np, seed, coalesce="bucketed", autotune=True)
+    launches = run["launches"]
+    report, stats, sweeps = autotune.report(), autotune.cache_stats(), autotune.sweep_times()
+    log(f"autotune: report {json.dumps(report)}")
+    disk_keys = sorted(json.loads(cache.read_text())["entries"])
+    log(f"autotune: cache_stats {stats}; disk keys {disk_keys}")
+    for key, times in sweeps.items():
+        log(f"autotune: sweep {key} s per probe {json.dumps(times)}")
+    missing = [k for k in ("H", "V") if run["ops_by_kind"].get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"bucketed path ran no {missing} ops")
+    if stats["sweeps"] <= 0 or not report or not all(k.startswith("cuda/") for k in report):
+        raise AssertionError(f"autotune: no sweep on the card ({stats}, {sorted(report)})")
+    # each sweep launches (1 + repeats) probes per candidate; the serve's
+    # own stacked launches come on top
+    probes = {
+        "gf256_matmul_planes_batched": len(autotune.GF_BLOCK_CANDIDATES["cuda"]),
+        "xor_parity_batched": len(autotune.XOR_BLOCK_CANDIDATES["cuda"]),
+    }
+    for name, n_cands in probes.items():
+        swept = (1 + autotune._PROBE_REPEATS) * n_cands
+        if launches[name] <= swept:
+            raise AssertionError(f"{name}: {launches[name]} launches, all autotune probes "
+                                 f"({swept}); the serve's decodes never ran it")
+    for name in ("ragged_gf256_encode_tiles", "ragged_xor_encode_tiles"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the bucketed path's PUTs")
     return launches
 
 
@@ -328,12 +576,24 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             log(f"ptxas: {line.strip()}")
 
+    t_start = time.perf_counter()
     rows = check_kernels(np, torch, args.seed)
+    matrix_rows = check_matrix_kernels(np, torch, args.seed)
+    codec = codec_path(np, torch, args.seed)
+    log(f"phase 2 done at {time.perf_counter() - t_start:.1f} s")
     small_trace_agrees(np, args.seed + 9)
-    launches = serve_full_width(np, args.seed)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-    log(json.dumps({"kernels": rows}))
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
+    ragged = serve_ragged(np, args.seed)
+    gc.collect()  # phase 4's gateway held 4.5 GiB of host blocks
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
+    bucketed = serve_bucketed(np, args.seed)
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    # each kernel's launches come from the path that runs it
+    source = {"gf256_matmul_planes": codec, "xor_parity": codec,
+              "gf256_matmul_planes_batched": bucketed, "xor_parity_batched": bucketed}
+    for row in rows + matrix_rows:
+        row["launches"] = source.get(row["name"], ragged)[row["name"]]
+    log(json.dumps({"kernels": rows + matrix_rows}))
     log(smi)
     print(json.dumps({
         "ok": True,

@@ -7,8 +7,9 @@
 # tiles and decoded in chunked CUDA tile-kernel launches per kind, with
 # <= 2 launch signatures per kind and only tail-tile padding; the
 # measured launch time is split by tile ranges into per-op LaunchUnits
-# so the engine pool spreads one launch across engines. The bucketed
-# baseline is not ported yet. Plus rebuild-cost-aware block caching and
+# so the engine pool spreads one launch across engines. coalesce="bucketed"
+# keeps the per-shape stacked launches (ladder-padded, autotuned) as the
+# measured baseline. Plus rebuild-cost-aware block caching and
 # weighted-fair quantum fabric sharing between any number of tenants.
 #
 # Tenancy and SLOs: every request is tagged with a tenant; each tenant's
@@ -67,12 +68,21 @@
 # are the end-to-end churn consistency audits (zero stale parity, every
 # sealed extent byte-identical through degraded decode).
 #
-# Namespace metadata plane (metadata.py): stripe maps, the object->shard
-# consistent-hash directory, ground truth, tombstones, fault bookkeeping
-# and cache-coherence fan-out, split from the data path. The multi-shard
-# front door (sharding.py) is not ported yet (ROADMAP.md).
+# Multi-gateway scale-out (metadata.py + sharding.py): the namespace
+# metadata plane (stripe maps, object->shard consistent-hash directory,
+# ground truth, tombstones, fault bookkeeping, cache-coherence fan-out)
+# is split from the per-shard data path, so N ObjectGateway shards run
+# over ONE shared BlockStore/NetSimulator. ShardedGateway is the front
+# door: requests route by crc32 consistent hash (vnodes per shard),
+# each shard keeps its own cache/engine pool/admission/repair fixer
+# (fabric lanes tagged "tenant@s<id>", weights inherited from the base
+# tenant), cluster events apply once with repair ownership split by
+# group hash, and ShardFailEvent kills a shard mid-run — storage is
+# untouched, so its namespace ranges fail over to survivors with zero
+# lost blocks. serve() returns GatewayReport.merged across shards.
 from repro_torch.gateway.cache import CacheStats, LRUBlockCache
 from repro_torch.gateway.coalescer import (
+    PAD_LADDER,
     CoalescerStats,
     DecodeCoalescer,
     LaunchUnit,
@@ -92,6 +102,7 @@ from repro_torch.gateway.planner import (
 )
 from repro_torch.gateway.metadata import MetadataPlane, ShardDirectory
 from repro_torch.gateway.sealer import Extent, StripeSealer
+from repro_torch.gateway.sharding import ShardedGateway
 from repro_torch.gateway.workload import (
     CapacityLossEvent,
     CorruptionEvent,
@@ -126,6 +137,7 @@ __all__ = [
     "EnginePool",
     "LRUBlockCache",
     "NodeRecoverEvent",
+    "PAD_LADDER",
     "CoalescerStats",
     "DecodeCoalescer",
     "LaunchUnit",
@@ -136,6 +148,7 @@ __all__ = [
     "RequestRecord",
     "ShardDirectory",
     "ShardFailEvent",
+    "ShardedGateway",
     "DecodeOp",
     "DegradedReadPlanner",
     "Extent",

@@ -1,11 +1,13 @@
 """Request coalescer: execute a window's degraded-read decodes in as few
 kernel launches as the shape mix allows.
 
-**Ragged tile dataplane (``mode="ragged"``, the only mode ported).** A
-realistic mixed-tenant window holds decodes of MIXED shapes — horizontal
-RS ops with varying target counts, vertical XOR repairs, ragged byte
-lengths. The ragged path stages the WHOLE window per kind: every decode
-row (one output row of one op) is cut into fixed-width tiles (width
+Two dataplanes share one interface (``DecodeCoalescer(mode=...)``):
+
+**Ragged tile dataplane (default, ``mode="ragged"``).** A realistic
+mixed-tenant window holds decodes of MIXED shapes — horizontal RS ops
+with varying target counts, vertical XOR repairs, ragged byte lengths.
+The ragged path stages the WHOLE window per kind: every decode row (one
+output row of one op) is cut into fixed-width tiles (width autotuned,
 capped to the longest row), gathered into a preallocated staging buffer
 ``(C, K, TN)`` with per-tile coefficient bit-planes, and decoded by ONE
 tile-kernel launch per chunk whose grid walks tiles
@@ -33,30 +35,38 @@ zero-filling K-axis padding and tile tails — zero bytes are the identity
 for both GF(256) products and XOR, so the kernel needs no masking and
 the host slices each row's valid prefix back out.
 
-The shape-bucketed baseline (``mode="bucketed"``) and measured kernel
-autotuning run over kernels that are not ported yet; both raise
-``NotImplementedError`` (see ROADMAP.md).
+**Shape buckets (``mode="bucketed"``, the baseline).** One stacked
+launch per (kind, M, K, blocklen) bucket — "H" decodes through
+``ops.gf256_matmul_batched`` (K6), "V" repairs through
+``ops.xor_parity_batched`` (K7) — batch sizes padded up a fixed
+power-of-two ladder (PAD_LADDER) by replicating the first stripe,
+buckets beyond the top rung split into top-rung chunks. A bucket's
+stripes are gathered straight into one ``(B_pad, K, N)`` host array,
+copied to the device, decoded, and copied back. Encode kinds ("EH",
+"EV") stay ragged in both modes.
 
 Engine-pool integration: ``execute`` returns a list of ``LaunchUnit``s
 — the simulated-compute quanta the gateway dispatches onto its parallel
-decode engines. A tile launch is SPLIT by tile ranges into one unit per
-op, each billed its tile share of the measured launch time, so one
-physical launch can still spread across engines. The gateway gates every
-unit of a launch on the launch-wide source barrier (the staging buffer
-holds all its ops' tiles), keyed by ``launch_id``.
+decode engines. A bucketed launch is one unit owning its batch; a tile
+launch is SPLIT by tile ranges into one unit per op, each billed its
+tile share of the measured launch time, so one physical launch can still
+spread across engines. The gateway gates every unit of a launch on the
+launch-wide source barrier (the staging buffer holds all its ops'
+tiles), keyed by ``launch_id``.
 
 Compute time is measured on the real kernels (host clock around the
-launch, its copies and a device synchronize) and scaled by the cluster
-profile, mirroring BlockFixer's convention. Each launch signature is
-billed at its BEST-observed execution time: the kernel's intrinsic cost
-is its fastest run, and transient host stalls (a noisy neighbour during
-one launch) are not properties of the simulated hardware — without the
-floor, one slow wall-clock sample would skew a whole simulated-latency
-distribution.
+host-to-device copy, the launch, a device synchronize and the copy
+back) and scaled by the cluster profile, mirroring BlockFixer's
+convention. Each launch signature is billed at its BEST-observed
+execution time: the kernel's intrinsic cost is its fastest run, and
+transient host stalls (a noisy neighbour during one launch) are not
+properties of the simulated hardware — without the floor, one slow
+wall-clock sample would skew a whole simulated-latency distribution.
 """
 
 from __future__ import annotations
 
+import bisect
 import logging
 import time
 from collections import Counter, defaultdict
@@ -67,7 +77,7 @@ import numpy as np
 import torch
 
 from repro_torch.gateway.planner import DecodeOp
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels import ragged_decode as _rdk
 from repro_torch.kernels.backend import resolve_device, synchronize
 from repro_torch.kernels.gf256_matmul import expand_coeff_bitplanes
@@ -79,13 +89,28 @@ _log = logging.getLogger(__name__)
 RAGGED = "ragged"
 BUCKETED = "bucketed"
 
+# Batch-size rungs for the bucketed baseline: B pads up to the next rung
+# (powers of two). Buckets larger than the top rung are SPLIT into
+# top-rung launches, so the distinct launch signatures per decode shape
+# are truly <= len(PAD_LADDER).
+PAD_LADDER = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+def ladder_rung(b: int) -> int:
+    """Smallest ladder rung >= b. Callers cap b at PAD_LADDER[-1] first
+    (the coalescer splits oversized buckets into top-rung chunks)."""
+    if not 0 < b <= PAD_LADDER[-1]:
+        raise ValueError(f"batch {b} outside (0, {PAD_LADDER[-1]}]")
+    return PAD_LADDER[bisect.bisect_left(PAD_LADDER, b)]
+
+
 @dataclass(frozen=True)
 class LaunchUnit:
     """One simulated-compute quantum the gateway schedules on its decode
     engine pool. ``op_indices`` are positions in the ``execute`` op
     list; ``fraction`` is this unit's share of its physical launch's
-    wall time (a tile launch splits by tile ranges, one unit per op),
-    so modeled-cost billing can charge
+    wall time (1.0 for a bucketed launch; a tile launch splits by tile
+    ranges, one unit per op), so modeled-cost billing can charge
     ``decode_cost x fraction`` and still sum to one launch."""
 
     op_indices: tuple[int, ...]
@@ -107,8 +132,8 @@ class CoalescerStats:
     staged_bytes: int = 0  # useful source bytes staged for kernels
     padded_bytes: int = 0  # filler staged alongside (tails, rungs)
     # ops-per-launch histogram. Bounded: at most one key per distinct
-    # batch size (<= CHUNK_BIG of them) — a week-long scenario run does
-    # not accrete one int per launch.
+    # batch size (<= PAD_LADDER[-1] of them) — a week-long scenario run
+    # does not accrete one int per launch.
     batch_hist: dict[int, int] = field(default_factory=dict)
     ops_by_kind: dict[str, int] = field(default_factory=dict)
     sources_by_kind: dict[str, int] = field(default_factory=dict)
@@ -154,21 +179,12 @@ class DecodeCoalescer:
         self,
         compute_scale: float = 1.0,
         device: str | None = None,
-        autotune_kernels: bool = False,
+        autotune_kernels: bool = True,
         mode: str = RAGGED,
     ):
         if mode not in (RAGGED, BUCKETED):
             raise ValueError(
                 f"mode must be 'ragged' or 'bucketed', got {mode!r}"
-            )
-        if mode == BUCKETED:
-            raise NotImplementedError(
-                "mode='bucketed' runs over the single-op and batched kernels "
-                "(K5, K7), which are not ported yet: see ROADMAP.md queue 1"
-            )
-        if autotune_kernels:
-            raise NotImplementedError(
-                "kernel autotuning is not ported yet: see ROADMAP.md queue 1"
             )
         self.compute_scale = compute_scale
         self.device = resolve_device(device)
@@ -177,10 +193,12 @@ class DecodeCoalescer:
         self.stats = CoalescerStats()
         self._warm: set[tuple] = set()  # launch signatures seen
         self._best: dict[tuple, float] = {}  # per-signature fastest run
+        self._tuned: dict[str, autotune.TunedKernel] = {}
         self._shapes: set[tuple] = set()  # distinct op shape_keys seen
-        # grow-only caps (a new signature only on growth keeps the
-        # signature set at the two chunk rungs for steady traffic) and
-        # the reusable staging buffers, keyed (kind, C).
+        # ragged-path state: grow-only caps (a new signature only on
+        # growth keeps the signature set at the two chunk rungs for
+        # steady traffic) and the reusable staging buffers, keyed
+        # (kind, C).
         self._k_cap: dict[str, int] = {}
         self._tile_n: dict[str, int] = {}
         self._staging: dict[tuple, torch.Tensor] = {}
@@ -201,8 +219,30 @@ class DecodeCoalescer:
         dataplane's O(1)-per-kind guarantee, observable."""
         out: dict[str, int] = {}
         for sig in self._warm:
-            out[sig[0]] = out.get(sig[0], 0) + 1
+            kind = sig[1][0] if sig[0] == BUCKETED else sig[1]
+            out[kind] = out.get(kind, 0) + 1
         return out
+
+    def _tuned_for(self, kind: str) -> autotune.TunedKernel | None:
+        if not self.autotune_kernels:
+            return None
+        # encode kinds ("E*") only ever run ragged — there is no bucketed
+        # encode baseline — so they always take the ragged tuners
+        mode = RAGGED if kind.startswith("E") else self.mode
+        key = f"{mode}:{kind}"
+        tuned = self._tuned.get(key)
+        if tuned is None:
+            if mode == RAGGED:
+                tune = (
+                    autotune.tuned_ragged_xor
+                    if kind in ("V", "EV")
+                    else autotune.tuned_ragged_gf256
+                )
+            else:
+                tune = autotune.tuned_xor if kind == "V" else autotune.tuned_gf256
+            tuned = tune(self.device)
+            self._tuned[key] = tuned
+        return tuned
 
     def execute(
         self,
@@ -224,13 +264,31 @@ class DecodeCoalescer:
         self.stats.windows += 1
         for op in decode_ops:
             self._shapes.add(op.shape_key)
-        by_kind: dict[str, list[int]] = defaultdict(list)
-        for j, op in enumerate(decode_ops):
-            by_kind[op.kind].append(j)
-        for kind in sorted(by_kind):
-            self._execute_ragged(
-                kind, by_kind[kind], decode_ops, fetch, results, units
-            )
+        if self.mode == RAGGED:
+            by_kind: dict[str, list[int]] = defaultdict(list)
+            for j, op in enumerate(decode_ops):
+                by_kind[op.kind].append(j)
+            for kind in sorted(by_kind):
+                self._execute_ragged(
+                    kind, by_kind[kind], decode_ops, fetch, results, units
+                )
+        else:
+            # buckets split by byte length too (it is a launch shape key
+            # anyway), so ragged-length windows stack cleanly
+            buckets: dict[tuple, list[int]] = defaultdict(list)
+            for i, op in enumerate(decode_ops):
+                n = int(np.asarray(fetch(op.sources[0])).shape[-1])
+                buckets[(op.shape_key, n)].append(i)
+            for (key, _n), all_idxs in buckets.items():
+                kind = key[0]
+                tuned = self._tuned_for(kind)
+                # buckets beyond the top rung split into top-rung launches
+                cap = PAD_LADDER[-1]
+                for c in range(0, len(all_idxs), cap):
+                    self._launch_bucket(
+                        key, kind, all_idxs[c : c + cap], tuned, decode_ops,
+                        fetch, results, units,
+                    )
         self.stats.decode_shapes = len(self._shapes)
         return results, units
 
@@ -245,8 +303,9 @@ class DecodeCoalescer:
         ("EV" ops — stored parity plus any number of old^new row
         contributions, one op per touched parity block per window).
 
-        Same interface and staging contract as ``execute``, through the
-        separate kernels/ragged_encode.py entries, so encode signature
+        Same interface and staging contract as ``execute``, but always
+        via the ragged path (see ``_tuned_for``) and the separate
+        kernels/ragged_encode.py entries, so encode signature
         growth is observable per kind and never touches the decode
         signatures.
         Source keys are whatever hashables ``fetch`` resolves — the
@@ -276,6 +335,7 @@ class DecodeCoalescer:
         """Stage every op of ``kind`` as descriptor tiles and decode the
         whole set in chunked tile launches (see module docstring for
         the staging contract)."""
+        tuned = self._tuned_for(kind)
         # fetch each distinct source once, straight into the gather below
         src: dict[BlockKey, np.ndarray] = {}
         # one descriptor row per OUTPUT row: (op_idx, target column,
@@ -302,7 +362,11 @@ class DecodeCoalescer:
         self._k_cap[kind] = max(self._k_cap.get(kind, 0), k_max)
         k_cap = self._k_cap[kind]
         max_len = max(r[4] for r in rows)
-        tn_fit = min(_rdk.DEFAULT_TILE_N, _next_pow2(max_len))
+        tn_fit = (
+            tuned.block_n_for(max_len)
+            if tuned is not None
+            else min(_rdk.DEFAULT_TILE_N, _next_pow2(max_len))
+        )
         self._tile_n[kind] = max(self._tile_n.get(kind, 0), tn_fit)
         tn = self._tile_n[kind]
         # cut rows into fixed-width tiles
@@ -388,14 +452,16 @@ class DecodeCoalescer:
         # rung, K cap and tile width are the only shape keys, and the
         # one-off first-launch cost must not be billed to the window's
         # simulated decode latency.
-        sig = (kind, c, k_cap, tn)
+        sig = (RAGGED, kind, c, k_cap, tn)
         if sig not in self._warm:
             # a grow-only cap ratchet obsoletes this kind's previous
             # signatures — they can never be launched again, so the LIVE
             # set stays at the two chunk rungs per kind; jit_retraces
             # keeps the cumulative count for churn visibility
             stale = {
-                s for s in self._warm if s[0] == kind and s[2:] != (k_cap, tn)
+                s
+                for s in self._warm
+                if s[0] == RAGGED and s[1] == kind and s[3:] != (k_cap, tn)
             }
             self._warm -= stale
             for s in stale:
@@ -445,3 +511,75 @@ class DecodeCoalescer:
         self.stats.record_batch(len(tiles_per_op))
         self.stats.staged_bytes += useful
         self.stats.padded_bytes += c * k_cap * tn - useful
+
+    # -- bucketed baseline path -------------------------------------------------
+    def _launch_bucket(
+        self, key, kind, idxs, tuned, decode_ops, fetch, results, units
+    ) -> None:
+        """One stacked launch for ``idxs`` (all sharing shape ``key``),
+        padded up the ladder; emits one LaunchUnit owning the whole
+        batch and writes per-op ``results``."""
+        b_pad = ladder_rung(len(idxs))
+        first = decode_ops[idxs[0]]
+        n = int(np.asarray(fetch(first.sources[0])).shape[-1])
+        # gather every stripe straight into one (B_pad, K, N) host array;
+        # ladder padding replicates the first stripe — same shape, same
+        # coefficients, output rows sliced away below
+        data = np.empty((b_pad, len(first.sources), n), dtype=np.uint8)
+        for b, i in enumerate(idxs):
+            for k, s in enumerate(decode_ops[i].sources):
+                data[b, k] = fetch(s)
+        data[len(idxs) :] = data[0]
+        host = torch.from_numpy(data)
+        device = self.device
+        block_n = None if tuned is None else tuned.block_n_for(n)
+        if kind == "V":
+            launch = lambda: ops.xor_parity_batched(  # noqa: E731
+                host.to(device), block_n=block_n
+            )
+        else:
+            pad_idxs = idxs + [idxs[0]] * (b_pad - len(idxs))
+            coefs = np.stack([decode_ops[i].coeffs for i in pad_idxs])  # (B, M, K)
+            launch = lambda: ops.gf256_matmul_batched(  # noqa: E731
+                coefs, host.to(device), block_n=block_n
+            )
+        # Untimed warm-up on first sight of a launch signature: the
+        # padded batch size B and byte length are the shape keys, and
+        # the one-off first-launch cost must not be billed to the
+        # window's simulated decode latency.
+        sig = (BUCKETED, key, b_pad, n)
+        if sig not in self._warm:
+            launch()
+            synchronize(device)
+            self._warm.add(sig)
+            self.stats.jit_entries = len(self._warm)
+            self.stats.jit_retraces += 1
+        t0 = time.perf_counter()
+        out = launch()
+        synchronize(device)
+        out = out.cpu().numpy()
+        if kind == "V":
+            for b, i in enumerate(idxs):  # out: (B, N)
+                results[i][decode_ops[i].targets[0]] = out[b]
+        else:
+            for b, i in enumerate(idxs):  # out: (B, M, N)
+                for m, col in enumerate(decode_ops[i].targets):
+                    results[i][col] = out[b, m]
+        dt = (time.perf_counter() - t0) * self.compute_scale
+        # bill at the signature's best-observed time (module docstring)
+        best = self._best.get(sig)
+        dt = dt if best is None or dt < best else best
+        self._best[sig] = dt
+        units.append(LaunchUnit(tuple(idxs), dt, kind, self.stats.decode_calls))
+        stripe = int(np.prod(data.shape[1:]))  # bytes per staged stripe
+        self.stats.staged_bytes += len(idxs) * stripe
+        self.stats.padded_bytes += (b_pad - len(idxs)) * stripe
+        self.stats.compute_time += dt
+        self.stats.decode_calls += 1
+        self.stats.decode_ops += len(idxs)
+        self.stats.padded_ops += b_pad - len(idxs)
+        self.stats.record_batch(len(idxs))
+        self.stats.ops_by_kind[kind] = self.stats.ops_by_kind.get(kind, 0) + len(idxs)
+        self.stats.sources_by_kind[kind] = self.stats.sources_by_kind.get(
+            kind, 0
+        ) + sum(len(decode_ops[i].sources) for i in idxs)

@@ -44,8 +44,9 @@ Pipeline stages (config.pipeline):
      decode-engine timelines once its LAUNCH's source transfers have
      all completed (a physical launch's staging buffer holds every one
      of its ops' tiles) and an engine frees, so a single physical
-     launch still spreads across the pool. ``coalesce="bucketed"`` (the
-     shape-bucketed baseline) is not ported yet and raises.
+     launch still spreads across the pool. ``coalesce="bucketed"`` keeps the
+     shape-bucketed dataplane (one stacked launch per (kind, M, K,
+     blocklen) bucket, ladder-padded) as the measured baseline.
   3. **verify / deliver** — each GET completes at the max of its direct
      fetches and the decode launches it depends on; contents are checked
      against ground truth host-side (zero simulated cost).
@@ -71,8 +72,9 @@ background class leaves are real preemption points for foreground reads
 
 Latency model per request: arrival -> (cache | fabric transfers to the
 request's client port) -> per-bucket decode on the shared engine ->
-completion. Decode compute is measured on the real kernels (launch
-signatures bounded at two chunk rungs per kind —
+completion. Decode compute is measured on the real kernels (autotuned
+per device, launch signatures bounded — two chunk rungs per kind on the
+ragged path, a fixed batch ladder on the bucketed one —
 GatewayReport.jit_cache_entries) and scaled by the cluster profile.
 
 Fault scenarios (repro.scenario): ``serve`` consumes node-level cluster
@@ -133,6 +135,7 @@ from repro_torch.gateway.workload import (
     SlowNicEvent,
     SlowNodeEvent,
 )
+from repro_torch.kernels import autotune
 from repro_torch.obs.metrics import BoundedLog, BoundedSamples, MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.storage.blockstore import BlockKey, BlockStore
@@ -180,13 +183,10 @@ class GatewayConfig:
     # without CUDA) or "cpu" (the plain torch path, for tests)
     device: str | None = "cuda"
     pipeline: str = PIPELINED  # "pipelined" | "serial" (PR-1 loop)
-    # measured kernel-parameter sweep at first use. Off, and True raises,
-    # until the tuners are ported (ROADMAP.md queue 1, autotune): tile
-    # width then follows the fixed fit formula of gateway/coalescer.py.
-    autotune: bool = False
+    autotune: bool = True  # measured kernel-parameter sweep at first use
     # decode dataplane: "ragged" = chunked tile-kernel launches per
-    # (window, kind); "bucketed" (the per-shape stacked baseline) is not
-    # ported yet and raises (ROADMAP.md queue 1, K5 and K7)
+    # (window, kind); "bucketed" = the per-shape stacked launches (kept
+    # as the measured baseline)
     coalesce: str = "ragged"
     record_payloads: bool = False  # sha256 of every GET payload in records
     # -- multi-tenant QoS ------------------------------------------------------
@@ -1132,7 +1132,7 @@ class ObjectGateway:
         return report
 
     def _finalize_report(self, report: GatewayReport) -> None:
-        """Stamp end-of-serve coalescer/tracer statistics into
+        """Stamp end-of-serve coalescer/autotune/tracer statistics into
         the report — shared by ``serve`` and the sharded front door's
         merged loop (which finalizes each shard's report at drain)."""
         st = self.coalescer.stats
@@ -1140,14 +1140,16 @@ class ObjectGateway:
         report.decode_launches = st.decode_calls
         report.launches_per_window = st.launches_per_window
         report.padded_byte_ratio = st.padded_byte_ratio
-        # surface launch-signature churn as first-class metrics (it was
-        # only visible as raw counters)
+        # surface launch-signature churn and autotune cache behavior as
+        # first-class metrics (they were only visible as raw counters)
         m = report.metrics
         m.gauge("jit_entries").set(st.jit_entries)
         m.gauge("jit_retraces").set(st.jit_retraces)
         m.gauge("encode_launches").set(st.encode_calls)
         m.gauge("encode_ops").set(st.encode_ops)
         m.gauge("encode_windows").set(st.encode_windows)
+        for name, v in autotune.cache_stats().items():
+            m.gauge(f"autotune_{name}").set(v)
         if self.tracer.enabled:
             for name, v in self.tracer.stats().items():
                 if isinstance(v, (int, float)):

@@ -36,13 +36,22 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry -> argument types; every entry returns cudaGetLastError() as int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry -> argument types; every entry returns cudaGetLastError() as int.
+# Byte lengths of the matrix entries are 64-bit: a batched launch over
+# 64 MiB blocks holds more than 2^31 bytes.
 ENTRIES = {
+    # csrc/ragged_tiles.cu (K1-K4): mc, data, out, C, K, TN, stream
     "ragged_gf256_tiles": (_P, _P, _P, _I, _I, _I, _P),
     "ragged_xor_tiles": (_P, _P, _I, _I, _I, _P),
     "ragged_gf256_encode_tiles": (_P, _P, _P, _I, _I, _I, _P),
     "ragged_xor_encode_tiles": (_P, _P, _I, _I, _I, _P),
+    # csrc/gf_matmul_xor.cu (K5-K7): [mc,] data, out, [B,] M/T, [K,] N,
+    # block_n, stream
+    "gf256_matmul_planes": (_P, _P, _P, _I, _I, _L, _I, _P),
+    "gf256_matmul_planes_batched": (_P, _P, _P, _I, _I, _I, _L, _I, _P),
+    "xor_parity": (_P, _P, _I, _L, _I, _P),
+    "xor_parity_batched": (_P, _P, _I, _I, _L, _I, _P),
 }
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRIES}
 

@@ -41,6 +41,24 @@ def as_u8(x, device: str | torch.device | None = None) -> torch.Tensor:
     return t if t.dtype == torch.uint8 else t.to(torch.uint8)
 
 
+def check_cuda_operands(width: int, what: str, *tensors: torch.Tensor) -> None:
+    """What every CUDA body of kernels/csrc/ takes: operands on the card,
+    contiguous, the first 16-byte aligned, and ``width`` (the bytes a
+    block or tile covers, named ``what`` in errors) whole uint4 vectors.
+    Raises ValueError on anything else."""
+    if tensors[0].device.type != "cuda":
+        raise ValueError(
+            f"operands must lie on a CUDA device or the CPU, not {tensors[0].device}"
+        )
+    if width % 16:
+        raise ValueError(f"{what} {width} is not a multiple of 16 bytes")
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if tensors[0].data_ptr() % 16:
+        raise ValueError("data must be 16-byte aligned for vector loads")
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work (no-op on the CPU): the port's
     counterpart of ``jax.block_until_ready`` before a clock read."""

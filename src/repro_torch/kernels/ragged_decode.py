@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.backend import check_cuda_operands
 
 # Launch-size rungs, in tiles. Two rungs bound the launch signatures per
 # kind at 2 while keeping null-tile padding under CHUNK_SMALL per window
@@ -97,24 +98,11 @@ def _check(data: torch.Tensor, mc: torch.Tensor | None) -> None:
             raise ValueError(f"mc on {mc.device}, data on {data.device}")
 
 
-def _cuda_args(data: torch.Tensor, *others: torch.Tensor) -> None:
-    if data.device.type != "cuda":
-        raise ValueError(f"tiles must lie on a CUDA device or the CPU, not {data.device}")
-    _c, _kk, tn = data.shape
-    if tn % 16:
-        raise ValueError(f"tile width {tn} is not a multiple of 16 bytes")
-    for t in (data, *others):
-        if not t.is_contiguous():
-            raise ValueError("tile tensors must be contiguous")
-    if data.data_ptr() % 16:
-        raise ValueError("data must be 16-byte aligned for vector loads")
-
-
 def launch_gf(entry: str, mc: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
     _check(data, mc)
     if data.device.type == "cpu":
         return gf_tiles_plain(mc, data)
-    _cuda_args(data, mc)
+    check_cuda_operands(data.shape[-1], "tile width", data, mc)
     c, kk, tn = data.shape
     out = torch.empty((c, tn), dtype=torch.uint8, device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream
@@ -126,7 +114,7 @@ def launch_xor(entry: str, data: torch.Tensor) -> torch.Tensor:
     _check(data, None)
     if data.device.type == "cpu":
         return xor_tiles_plain(data)
-    _cuda_args(data)
+    check_cuda_operands(data.shape[-1], "tile width", data)
     c, kk, tn = data.shape
     out = torch.empty((c, tn), dtype=torch.uint8, device=data.device)
     stream = torch.cuda.current_stream(data.device).cuda_stream

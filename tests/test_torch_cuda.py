@@ -1,8 +1,9 @@
-"""The port on the card: each CUDA tile kernel (K1-K4) against its plain
-torch version, and the codec's device path against its CPU path, byte
-for byte. Every test is marked ``cuda`` and skips without a CUDA device
-(the kernels are CUDA C++ and have no CPU mode). Imports nothing of JAX,
-so it runs where the port runs:
+"""The port on the card: each CUDA tile kernel (K1-K4) and matrix kernel
+(K5, K6, K7, K7 batched) against its plain torch version, and the codec's
+device path against its CPU path, byte for byte. Every test is marked
+``cuda`` and skips without a CUDA device (the kernels are CUDA C++ and
+have no CPU mode). Imports nothing of JAX, so it runs where the port
+runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -17,6 +18,8 @@ import torch  # noqa: E402
 from repro_torch.core.product_code import CoreCode, CoreCodec  # noqa: E402
 from repro_torch.kernels import _build, ops, ragged_decode  # noqa: E402
 from repro_torch.kernels.gf256_matmul import expand_coeff_bitplanes  # noqa: E402
+from repro_torch.kernels.gf256_matmul import gf_matmul_plain  # noqa: E402
+from repro_torch.kernels.xor_parity import xor_rows_plain  # noqa: E402
 
 # C entry -> (port entry, GF?)
 ENTRIES = {
@@ -80,3 +83,49 @@ def test_codec_on_card_matches_cpu(card):
     mat = on_card.cpu().numpy()
     np.testing.assert_array_equal(mat, CoreCodec(code, device="cpu").encode(objs).numpy())
     assert CoreCodec(code).verify(mat)
+
+
+def _matrix_cases(card, b, m, kk, n, seed):
+    """{C entry: (kernel result, plain result)} for one (B, M, K, N)."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    data = torch.randint(0, 256, (b, kk, n), dtype=torch.uint8, device=card, generator=gen)
+    coefs = np.random.default_rng(seed).integers(0, 256, (b, m, kk), dtype=np.uint8)
+    want = gf_matmul_plain(ops._planes(coefs, data.device), data)
+    want_x = xor_rows_plain(data)
+    return {
+        "gf256_matmul_planes_batched": (ops.gf256_matmul_batched(coefs, data), want),
+        "gf256_matmul_planes": (ops.gf256_matmul(coefs[0], data[0]), want[0]),
+        "xor_parity_batched": (ops.xor_parity_batched(data), want_x),
+        "xor_parity": (ops.xor_parity(data[0]), want_x[0]),
+    }
+
+
+@pytest.mark.cuda
+def test_matrix_kernels_match_plain(card):
+    """K5, K6, K7 and K7 batched through ops (padding to a block_n
+    multiple included): M in {1, 3, 6} (6 takes a second accumulator
+    pass), K in {1, 3, 6, 9}, B in {1, 4}, N in {128, 4096, 5000, 2^20}."""
+    _build.reset_launches()
+    cases = 0
+    for b in (1, 4):
+        for m in (1, 3, 6):
+            for kk in (1, 3, 6, 9):
+                for n in (128, 4096, 5000, 1 << 20):
+                    for name, (got, want) in _matrix_cases(card, b, m, kk, n, cases).items():
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, want), (name, b, m, kk, n)
+                    cases += 1
+    for name in ("gf256_matmul_planes", "gf256_matmul_planes_batched", "xor_parity",
+                 "xor_parity_batched"):
+        assert _build.LAUNCHES[name] == cases
+
+
+@pytest.mark.cuda
+def test_matrix_kernels_at_64_mib_batched(card):
+    """One batched launch over more than 2^31 bytes (B = 8, K = 6,
+    N = 64 MiB: 3.2 GB of sources): the byte axis on gridDim.x and the
+    size_t offsets of csrc/gf_matmul_xor.cu."""
+    for name, (got, want) in _matrix_cases(card, 8, 1, 6, 64 << 20, 11).items():
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), name

@@ -3,8 +3,9 @@ serving one degraded GET/PUT trace on both, with modeled billing so the
 simulated clock never reads the wall clock.
 
 The same numpy objects, trace and failed nodes go to the JAX gateway
-(``autotune=False``, Pallas in interpret mode on the CPU) and to the
-port (``device="cpu"``, the kernels' plain torch versions). Per-request
+(Pallas in interpret mode on the CPU) and to the port (``device="cpu"``,
+the kernels' plain torch versions), both with ``autotune=False``: a
+tuned tile width would change tile counts, and so billed latencies. Per-request
 records, report counters, the parity audit, placement and stored bytes
 must all be identical (tolerance 0), and ``BlockFixer.fix_group`` must
 restore the same bytes on both.
@@ -33,7 +34,8 @@ import repro_torch.storage.repair as trep  # noqa: E402
 # gateway config keywords, codec/fixer keywords)
 SIDES = {
     "jax": (jpc, jgw, jwl, jnet, jrep, jbs, {"autotune": False, "interpret": True}, {}),
-    "torch": (tpc, tgw, twl, tnet, trep, tbs, {"device": "cpu"}, {"device": "cpu"}),
+    "torch": (tpc, tgw, twl, tnet, trep, tbs, {"autotune": False, "device": "cpu"},
+              {"device": "cpu"}),
 }
 # the failed blocks: column 0 of g0 needs "H" decodes, g1 row 0 "V" repairs
 VICTIMS = (("g0", 0, 0), ("g0", 1, 0), ("g1", 0, 2))

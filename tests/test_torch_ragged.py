@@ -145,6 +145,8 @@ def test_plain_path_counts_no_launch():
     assert set(_build.LAUNCHES) == {
         "ragged_gf256_tiles", "ragged_xor_tiles",
         "ragged_gf256_encode_tiles", "ragged_xor_encode_tiles",
+        "gf256_matmul_planes", "gf256_matmul_planes_batched",
+        "xor_parity", "xor_parity_batched",
     }
     assert all(n == 0 for n in _build.LAUNCHES.values())
 
@@ -196,7 +198,7 @@ def _units(units):
 def _assert_same_windows(windows, encode=False):
     """Run every window through both coalescers and compare everything
     but measured wall time."""
-    ours = tco.DecodeCoalescer(device="cpu")
+    ours = tco.DecodeCoalescer(device="cpu", autotune_kernels=False)
     theirs = jco.DecodeCoalescer(interpret=True, mode=jco.RAGGED, autotune_kernels=False)
     for w_ours, w_theirs, store in windows:
         fetch = lambda key: store[key]  # noqa: E731
@@ -265,10 +267,14 @@ def test_coalescer_overflow_and_multi_tile_rows_match_jax():
     )
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tco.DecodeCoalescer(device="cpu", mode=tco.BUCKETED)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tco.DecodeCoalescer(device="cpu", autotune_kernels=True)
+def test_modes_and_autotune_construct():
+    """Both dataplanes and the autotuner are ported: every combination
+    constructs, autotuning is the default as in the JAX package, and an
+    unknown mode is still refused."""
+    for mode in (tco.RAGGED, tco.BUCKETED):
+        for tune in (False, True):
+            co = tco.DecodeCoalescer(device="cpu", mode=mode, autotune_kernels=tune)
+            assert (co.mode, co.autotune_kernels) == (mode, tune)
+    assert tco.DecodeCoalescer(device="cpu").autotune_kernels is True
     with pytest.raises(ValueError):
         tco.DecodeCoalescer(device="cpu", mode="mega")

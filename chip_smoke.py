@@ -40,12 +40,28 @@ Phases, in order; any failure raises and exits non-zero:
    disk cache a fresh file under ``build/``), after phase 4's gateway is
    freed. Every GET verified, "H" and "V" ran, K6 and K7 batched launched
    beyond the autotune sweeps' probes, sweeps ran under ``cuda/`` keys,
-   and the parity audit is clean.
+   and the parity audit is clean;
+6. the model path, falcon-mamba-7b (the ssm family): (a) the selective
+   scan K8 against its plain version over B in {1, 4}, S in {1, 16, 128},
+   D in {256, 8192}, N in {8, 16}, with and without h0, y and h_last at
+   rtol = atol = 2e-5, then its times at the prefill chunk (1, 128, 8192,
+   16); (b) the reduced config in float32 on the card and on the CPU from
+   the same weights: prefill logits within rtol = atol = 1e-4 and the
+   greedy tokens of a short serve identical; (c) full width and full depth
+   (64 layers, bf16 weights drawn from ``--seed`` on the card): a warm-up
+   and a profiled 2,048-token prefill (its device breakdown), then the 32,768-token
+   prefill of ``SHAPES["prefill_32k"]`` with its batch cut from 32 to 1
+   (K8 launched 64 x 256 times), then the reference launcher's default
+   serve (8 requests, batch 4, prompt 32, max-new 16, cache-len 128) and a
+   short profiled window of the same loop for its device busy share:
+   logits finite, every request finished, every token in the vocabulary,
+   K8 launched on both paths.
 
 The last three lines are the kernels' JSON record (each kernel's
 ``launches`` from the path that runs it: phase 4 for K1-K4, the codec
-path for K5 and K7, phase 5 for K6 and K7 batched), the card's name and
-power limit again, and the result line ``{"ok": true, "device": {...}}``.
+path for K5 and K7, phase 5 for K6 and K7 batched, phase 6(c)'s prefill
+and serve for K8), the card's name and power limit again, and the result
+line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -63,10 +79,12 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the
-# table's only integer rate (int8, dense) for the operations bound.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, the table's
+# only integer rate (int8, dense) for the operations bound, and float32
+# outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
 BLOCK_BYTES = 64 * 1024 * 1024  # Hadoop dfs.block.size = 67108864
 MAIN_C, MAIN_TN = 32, 4096
 
@@ -91,6 +109,10 @@ MATRIX_KERNELS = (
 )
 MATRIX_SOURCE = "src/repro_torch/kernels/csrc/gf_matmul_xor.cu"
 SWEEP_BLOCK_N = (1024, 2048, 4096, 8192, 16384, 32768, 65536, 131072, 262144)
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
+SCAN_REPLACES = "src/repro/kernels/selective_scan.py:57"
+SCAN_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_selective_scan_kernel.py
+PREFILL_CHUNK = (1, 128, 8192, 16)  # (B, S, D, N): one scan_chunk of falcon-mamba-7b
 
 
 def log(msg: str) -> None:
@@ -118,8 +140,9 @@ def time_ms(torch, fn, samples: int = 25, per_sample: int = 20) -> float:
 
 def device_ms(torch, fn, kernel_name: str, reps: int = 50) -> float | None:
     """Mean device time of one launch of ``kernel_name`` from a
-    torch.profiler (CUPTI) trace of ``reps`` calls; None when the trace
-    holds no device time for it."""
+    torch.profiler (CUPTI) trace of ``reps`` calls (one launch each),
+    over the launches the trace holds; None when it holds none. A trace
+    that lost launches is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -128,11 +151,14 @@ def device_ms(torch, fn, kernel_name: str, reps: int = 50) -> float | None:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, count = 0.0, 0
     for ev in prof.key_averages():
-        if kernel_name in ev.key:
-            total_us += getattr(ev, "device_time_total", 0.0) or 0.0
-    return total_us / reps / 1e3 if total_us else None
+        if kernel_name in ev.key and getattr(ev, "device_time_total", 0.0):
+            total_us += ev.device_time_total
+            count += ev.count
+    if count != reps:
+        log(f"device_ms({kernel_name}): the trace holds {count} of {reps} launches")
+    return total_us / count / 1e3 if count else None
 
 
 def tiles(np, torch, rng, c, kk, tn, *, pad: bool):
@@ -548,6 +574,233 @@ def serve_bucketed(np, seed: int) -> dict[str, int]:
     return launches
 
 
+def scan_inputs(torch, b, s, d, n, seed):
+    """The JAX test's distributions on the card: da in U(0.6, 0.999); dbu,
+    cm and h0 standard normal."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device="cuda", generator=gen)
+    da = torch.rand((b, s, d, n), **f32).mul_(0.399).add_(0.6)
+    return (da, torch.randn((b, s, d, n), **f32), torch.randn((b, s, n), **f32),
+            torch.randn((b, d, n), **f32))
+
+
+def check_scan_kernel(torch, seed: int) -> dict:
+    """Phase 6(a): K8 against its plain version over the sweep, then its
+    times at the prefill chunk with h0."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    cases, err = 0, 0.0
+    for b in (1, 4):
+        for s in (1, 16, 128):
+            for d in (256, 8192):
+                for n in (8, 16):
+                    da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed + cases)
+                    for start in (None, h0):
+                        y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
+                        want_y, want_h = selective_scan_plain(da, dbu, cm, start)
+                        torch.cuda.synchronize()
+                        torch.testing.assert_close(y, want_y, **SCAN_TOL)
+                        torch.testing.assert_close(h, want_h, **SCAN_TOL)
+                        err = max(err, float((y - want_y).abs().max()),
+                                  float((h - want_h).abs().max()))
+                        cases += 1
+    b, s, d, n = PREFILL_CHUNK
+    da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
+    kernel = lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True)  # noqa: E731
+    y, h = kernel()
+    want_y, want_h = selective_scan_plain(da, dbu, cm, h0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, want_y, **SCAN_TOL)
+    torch.testing.assert_close(h, want_h, **SCAN_TOL)
+    main_err = max(float((y - want_y).abs().max()), float((h - want_h).abs().max()))
+    ms = time_ms(torch, kernel, samples=25, per_sample=20)
+    plain_ms = time_ms(torch, lambda: selective_scan_plain(da, dbu, cm, h0), samples=5,
+                       per_sample=2)
+    dev_ms = device_ms(torch, kernel, "selective_scan_kernel")
+    # da, dbu, cm and h0 read once; y and h_last written once
+    nbytes = 4 * (2 * b * s * d * n + b * s * n + b * d * n + b * s * d + b * d * n)
+    nops = 4 * b * s * d * n  # h: a multiply and an add; y: a multiply and an add
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / F32_OPS_PER_S * 1e3
+    row = {
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES,
+        "launches": 0,
+        "max_abs_err": main_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        # no single PyTorch call computes a linear recurrence with an
+        # output contraction
+        "library_ms": None,
+        "device_ms": dev_ms,
+    }
+    log(f"kernel selective_scan: within rtol=atol=2e-5 of plain on {cases} cases "
+        f"(max_abs_err {err}); {PREFILL_CHUNK} with h0: kernel_ms={ms:.6f} "
+        f"device_ms={dev_ms} plain_ms={plain_ms:.6f} bound_ms={row['bound_ms']:.6f} "
+        f"({row['bound_by']}, {nbytes} bytes) library_ms=null")
+    del da, dbu, cm, h0, y, h, want_y, want_h
+    torch.cuda.empty_cache()
+    return row
+
+
+def reduced_model_agrees(np, torch, seed: int) -> None:
+    """Phase 6(b): the reduced falcon-mamba in float32 from the same
+    weights on the card and on the CPU: prefill logits and state within
+    rtol = atol = 1e-4, and the greedy tokens of a short serve identical."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+
+    cfg = get_config("falcon_mamba_7b").reduced()
+    api = get_model(cfg)
+    models = {"cpu": api.init(cfg, seed, device="cpu", dtype=torch.float32)}
+    models["cuda"] = copy.deepcopy(models["cpu"]).to("cuda")
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 64), dtype=np.int32)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 8), dtype=np.int32)
+    out = {}
+    _build.reset_launches()
+    for dev, model in models.items():
+        logits, state = api.prefill(model, {"tokens": tokens}, cfg, SINGLE, 0)
+        served = serve_requests(api, model, cfg, prompts, batch=2, max_new=4, cache_len=128)
+        out[dev] = (logits.cpu(), state["ssm"].cpu(), [(r.rid, r.generated) for r in served])
+    launches = _build.LAUNCHES["selective_scan"]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4, atol=1e-4)
+    err = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+    if out["cuda"][2] != out["cpu"][2]:
+        raise AssertionError(f"reduced serve: card {out['cuda'][2]} != CPU {out['cpu'][2]}")
+    if launches <= 0:
+        raise AssertionError("reduced model: K8 never launched on the card")
+    log(f"reduced falcon-mamba f32: prefill logits card vs CPU max_abs_err {err} "
+        f"(tolerance 1e-4); serve tokens identical {out['cuda'][2]}; K8 launches {launches}")
+
+
+def device_breakdown(prof, tag: str, wall_s: float, top: int = 8) -> float:
+    """Log the device busy share of a profiled window and its top device
+    operations; returns the busy seconds."""
+    device = sorted(
+        ((ev.device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+         if getattr(ev, "device_time_total", 0.0)),
+        reverse=True,
+    )
+    busy_s = sum(us for us, _n, _key in device) / 1e6
+    log(f"{tag}: device busy {busy_s:.6f} s of {wall_s:.6f} s wall "
+        f"(share {busy_s / wall_s:.6f}; torch.profiler, CUDA activity)")
+    for us, n, key in device[:top]:
+        log(f"{tag} device: {us / 1e3:.3f} ms in {n} x {key[:90]}")
+    return busy_s
+
+
+def full_width_model(np, torch, seed: int) -> dict[str, int]:
+    """Phase 6(c): falcon-mamba-7b at full width and depth on the card.
+    Returns K8's launches over the 32k prefill and over the serve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import serve_requests
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+    from repro_torch.serve.serve_step import make_prefill_step
+
+    cfg = get_config("falcon_mamba_7b")
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    model = api.init(cfg, seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"falcon-mamba-7b: {cfg.num_layers} layers, d_model {cfg.d_model}, d_inner "
+        f"{cfg.d_inner}, N {cfg.ssm_state}, vocab {cfg.vocab_size}: {n_params} parameters, "
+        f"{n_bytes} bytes, drawn on the card in {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(seed)
+
+    prefill = make_prefill_step(cfg, api, SINGLE, 0)
+    # a 2k prefill to warm up, then a profiled one: where prefill time goes
+    short = rng.integers(0, cfg.vocab_size, (1, 2048), dtype=np.int32)
+    prefill(model, {"tokens": short})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(model, {"tokens": short})
+        torch.cuda.synchronize()
+        short_s = time.perf_counter() - t0
+    device_breakdown(prof, "prefill[2048 tokens, profiled]", short_s)
+    del prof
+
+    cell = SHAPES["prefill_32k"]
+    tokens = rng.integers(0, cfg.vocab_size, (1, cell.seq_len), dtype=np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    logits, state = prefill(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_k8 = _build.LAUNCHES["selective_scan"]
+    chunks = cell.seq_len // cfg.scan_chunk * cfg.num_layers
+    mm_flop = 2 * cell.seq_len * cfg.num_layers * (
+        cfg.d_model * 2 * cfg.d_inner + cfg.d_inner * (cfg.dt_rank + 2 * cfg.ssm_state)
+        + cfg.dt_rank * cfg.d_inner + cfg.d_inner * cfg.d_model)
+    log(f"prefill[{cell.name} with its batch cut from {cell.global_batch} to 1]: "
+        f"{cell.seq_len} tokens in {prefill_s:.6f} s wall ({cell.seq_len / prefill_s:.3f} "
+        f"tokens/s); K8 launches {prefill_k8} (expected {chunks}); {mm_flop} matmul flop; "
+        f"peak memory {torch.cuda.max_memory_allocated()} bytes")
+    if logits.shape != (1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not finite or misshapen")
+    if tuple(state["ssm"].shape) != (cfg.num_layers, 1, cfg.d_inner, cfg.ssm_state):
+        raise AssertionError(f"prefill state {tuple(state['ssm'].shape)}")
+    if prefill_k8 != chunks:
+        raise AssertionError(f"prefill launched K8 {prefill_k8} times, expected {chunks}")
+    del logits, state
+
+    requests, batch, prompt_len, max_new, cache_len = 8, 4, 32, 16, 128
+    prompts = rng.integers(0, cfg.vocab_size, (requests, prompt_len), dtype=np.int32)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    finished = serve_requests(api, model, cfg, prompts, batch=batch, max_new=max_new,
+                              cache_len=cache_len)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve_k8 = _build.LAUNCHES["selective_scan"]
+    n_tokens = sum(len(r.generated) for r in finished)
+    log(f"serve[{requests} requests, batch {batch}, prompt {prompt_len}, max-new {max_new}, "
+        f"cache-len {cache_len}]: served {len(finished)} requests, {n_tokens} tokens in "
+        f"{serve_s:.6f} s wall ({n_tokens / serve_s:.3f} tokens/s); K8 launches {serve_k8} "
+        f"({serve_k8 // cfg.num_layers} decode calls)")
+    # the busy share from a profiled window of the same loop: every decode
+    # call costs the same whatever the live slots, and a trace of the whole
+    # serve (about 0.8 M device activities) takes minutes to read
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve_requests(api, model, cfg, prompts[:2, :8], batch=batch, max_new=4,
+                       cache_len=cache_len)
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    device_breakdown(prof, f"serve window[2 requests, batch {batch}, prompt 8, max-new 4, "
+                           f"profiled]", window_s)
+    del prof
+    bad = [r.rid for r in finished
+           if len(r.generated) != max_new or not all(0 <= t < cfg.vocab_size for t in r.generated)]
+    if len(finished) != requests or bad:
+        raise AssertionError(f"serve: {len(finished)} of {requests} finished; bad {bad}")
+    if serve_k8 <= 0:
+        raise AssertionError("serve: K8 never launched")
+    log(f"serve: first requests {[(r.rid, r.generated[:8]) for r in finished[:4]]}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill": prefill_k8, "serve": serve_k8}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -588,12 +841,21 @@ def main() -> int:
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     bucketed = serve_bucketed(np, args.seed)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    # float32 products in full float32, stated: cuDNN convolutions would
+    # take TF32 by default (the port's conv is a shifted sum, not cuDNN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scan_row = check_scan_kernel(torch, args.seed)
+    reduced_model_agrees(np, torch, args.seed)
+    scan_launches = full_width_model(np, torch, args.seed)
+    scan_row["launches"] = scan_launches["prefill"] + scan_launches["serve"]
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the path that runs it
     source = {"gf256_matmul_planes": codec, "xor_parity": codec,
               "gf256_matmul_planes_batched": bucketed, "xor_parity_batched": bucketed}
     for row in rows + matrix_rows:
         row["launches"] = source.get(row["name"], ragged)[row["name"]]
-    log(json.dumps({"kernels": rows + matrix_rows}))
+    log(json.dumps({"kernels": rows + matrix_rows + [scan_row]}))
     log(smi)
     print(json.dumps({
         "ok": True,

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``kernels/csrc/*.cu``).
 
 At first use on the card, every source is compiled with ``nvcc`` for
-Hopper (``-gencode arch=compute_90a,code=sm_90a``) into one shared
+Hopper (``-gencode arch=compute_90a,code=sm_90a``), one ``nvcc`` per
+source, all started together, and the objects are linked into one shared
 library with a plain C interface, loaded with ``ctypes``. Nothing is
 compiled or imported at module import, so ``import repro_torch`` works on
 a host with no CUDA toolkit.
@@ -33,7 +34,7 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -52,6 +53,9 @@ ENTRIES = {
     "gf256_matmul_planes_batched": (_P, _P, _P, _I, _I, _I, _L, _I, _P),
     "xor_parity": (_P, _P, _I, _L, _I, _P),
     "xor_parity_batched": (_P, _P, _I, _I, _L, _I, _P),
+    # csrc/selective_scan.cu (K8): da, dbu, cm, h0 (nullable), y,
+    # h_last (nullable), B, S, D, N, stream
+    "selective_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRIES}
 
@@ -90,7 +94,8 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile the sources unless a library with their hash exists. The
+    """Compile the sources unless a library with their hash exists: one
+    ``nvcc -c`` per source, all running at once, then one link. The
     output is written to a temporary name and renamed into place, so a
     concurrent process never loads a half-written file."""
     global build_seconds, build_log
@@ -99,17 +104,27 @@ def build() -> pathlib.Path:
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        objs = [os.path.join(objdir, f"{src.stem}.o") for src in sources()]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, proc in zip(sources(), procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = os.path.join(objdir, out.name)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{build_log}")
+        os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp, out)
     return out
 
 

@@ -1,0 +1,58 @@
+"""Family registry: one uniform ModelApi per architecture family.
+
+    api = get_model(cfg)
+    params            = api.init(cfg, seed, device=...)
+    logits, cache     = api.prefill(params, batch, cfg, ax, cache_len)
+    logits, cache     = api.decode(params, token, cache, pos, cfg, ax, plan)
+
+``batch`` is a dict with ``tokens``. The port serves the ssm family;
+the other families, and ``loss`` (training), wait in ROADMAP queue 1.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import mamba
+
+
+@dataclass(frozen=True)
+class ModelApi:
+    family: str
+    init: Callable  # (cfg, seed, *, device, dtype) -> params
+    loss: Callable  # (params, batch, cfg, ax) -> scalar
+    prefill: Callable  # (params, batch, cfg, ax, cache_len) -> (logits, cache)
+    decode: Callable  # (params, token, cache, pos, cfg, ax, plan) -> (logits, cache)
+    init_cache: Callable  # (cfg, batch, cache_len, *, device) -> cache
+    cache_shape: Callable  # (cfg, batch, cache_len) -> {name: TensorSpec}
+
+
+def _not_ported_loss(params, batch, cfg, ax):
+    raise NotImplementedError("training (loss) is not ported yet (ROADMAP queue 1)")
+
+
+def _ssm_prefill(params, batch, cfg, ax, cache_len):
+    return mamba.prefill(params, batch["tokens"], cfg, ax, cache_len)
+
+
+SSM = ModelApi(
+    family="ssm",
+    init=mamba.init_lm,
+    loss=_not_ported_loss,
+    prefill=_ssm_prefill,
+    decode=mamba.decode_step,
+    init_cache=mamba.init_cache,
+    cache_shape=mamba.cache_shape,
+)
+
+_FAMILIES = {"ssm": SSM}
+
+
+def get_model(cfg: ArchConfig) -> ModelApi:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not ported yet (ROADMAP queue 1)"
+        )
+    return _FAMILIES[cfg.family]

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA tile kernel (K1-K4) and matrix kernel
 (K5, K6, K7, K7 batched) against its plain torch version, and the codec's
-device path against its CPU path, byte for byte. Every test is marked
+device path against its CPU path, byte for byte; the selective scan (K8)
+against its plain version at rtol = atol = 2e-5. Every test is marked
 ``cuda`` and skips without a CUDA device (the kernels are CUDA C++ and
 have no CPU mode). Imports nothing of JAX, so it runs where the port
 runs:
@@ -129,3 +130,51 @@ def test_matrix_kernels_at_64_mib_batched(card):
     for name, (got, want) in _matrix_cases(card, 8, 1, 6, 64 << 20, 11).items():
         torch.cuda.synchronize()
         assert torch.equal(got, want), name
+
+
+def _scan_inputs(card, b, s, d, n, seed):
+    """da in U(0.6, 0.999), dbu, cm and h0 standard normal, on the card."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    f32 = dict(dtype=torch.float32, device=card, generator=gen)
+    da = torch.rand((b, s, d, n), **f32).mul_(0.399).add_(0.6)
+    dbu = torch.randn((b, s, d, n), **f32)
+    return da, dbu, torch.randn((b, s, n), **f32), torch.randn((b, d, n), **f32)
+
+
+@pytest.mark.cuda
+def test_selective_scan_matches_plain(card):
+    """K8 at chip_smoke.py's phase 6(a) shapes: B in {1, 4}, S in {1, 16,
+    128}, D in {256, 8192}, N in {8, 16}, with and without h0; y and
+    h_last."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    _build.reset_launches()
+    cases = 0
+    for b in (1, 4):
+        for s in (1, 16, 128):
+            for d in (256, 8192):
+                for n in (8, 16):
+                    da, dbu, cm, h0 = _scan_inputs(card, b, s, d, n, cases)
+                    for start in (None, h0):
+                        y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
+                        want_y, want_h = selective_scan_plain(da, dbu, cm, start)
+                        torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+                        torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)
+                        cases += 1
+    assert _build.LAUNCHES["selective_scan"] == cases
+
+
+@pytest.mark.cuda
+def test_selective_scan_size_t_offsets(card):
+    """One launch past 2^32 elements (B = 1, S = 32768, D = 8192, N = 16:
+    34 GB of da and dbu) where the card holds it, else S = 16384 (2^31)."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    free, _total = torch.cuda.mem_get_info(card)
+    s = 32768 if free > 48e9 else 16384
+    da, dbu, cm, h0 = _scan_inputs(card, 1, s, 8192, 16, 5)
+    y, h = selective_scan(da, dbu, cm, h0=h0, return_state=True)
+    want_y, want_h = selective_scan_plain(da, dbu, cm, h0)
+    torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)

@@ -34,6 +34,12 @@ def test_every_module_imports_without_jax_or_repro():
         slice_2 = {"repro_torch.kernels.autotune", "repro_torch.kernels.xor_parity",
                    "repro_torch.gateway.sharding"}
         assert slice_2 <= set(names), slice_2 - set(names)
+        slice_3 = {"repro_torch.configs", "repro_torch.configs.falcon_mamba_7b",
+                   "repro_torch.kernels.selective_scan", "repro_torch.models.mamba",
+                   "repro_torch.models.convert", "repro_torch.models.registry",
+                   "repro_torch.serve.kvcache", "repro_torch.serve.serve_step",
+                   "repro_torch.launch.serve"}
+        assert slice_3 <= set(names), slice_3 - set(names)
         print(len(names))
         """
     )
@@ -43,7 +49,7 @@ def test_every_module_imports_without_jax_or_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 33  # every subpackage was walked
+    assert int(proc.stdout.strip()) >= 55  # every subpackage was walked
 
 
 def test_no_jax_or_repro_import_lines():
@@ -65,8 +71,12 @@ def _entry_points():
     from repro_torch.storage.blockstore import BlockStore
     from repro_torch.storage.netmodel import ClusterProfile
     from repro_torch.storage.repair import BlockFixer
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import mamba
 
     code = CoreCode(9, 6, 3)
+    cfg = get_config("falcon_mamba_7b").reduced()
     objs = np.zeros((3, 6, 16), dtype=np.uint8)
     return {
         "resolve_device": lambda: resolve_device(None),
@@ -79,11 +89,16 @@ def _entry_points():
         "gateway": lambda: ObjectGateway(
             code, ClusterProfile.network_critical(), 60, GatewayConfig()
         ),
+        "mamba_lm": lambda: mamba.MambaLM(cfg),
+        "init_lm": lambda: mamba.init_lm(cfg, 0),
+        "init_cache": lambda: mamba.init_cache(cfg, 2),
+        "launch_serve": lambda: serve.main(["--arch", "falcon_mamba_7b", "--reduced"]),
     }
 
 
 @pytest.mark.parametrize(
-    "name", ["resolve_device", "resolve_cuda", "codec", "coalescer", "fixer", "gateway"]
+    "name", ["resolve_device", "resolve_cuda", "codec", "coalescer", "fixer", "gateway",
+             "mamba_lm", "init_lm", "init_cache", "launch_serve"]
 )
 def test_default_device_raises_without_cuda(name, monkeypatch):
     """No silent CPU fallback: the default device is the card."""
@@ -129,4 +144,26 @@ def test_library_name_tracks_the_sources():
     path = _build.library_path()
     assert path.parent == ROOT / "build" / "repro_torch"
     assert path.name.startswith("libragged_") and path.suffix == ".so"
-    assert [p.name for p in _build.sources()] == ["gf_matmul_xor.cu", "ragged_tiles.cu"]
+    assert [p.name for p in _build.sources()] == [
+        "gf_matmul_xor.cu", "ragged_tiles.cu", "selective_scan.cu"]
+
+
+def test_selective_scan_takes_the_plain_path_only_on_the_cpu(monkeypatch):
+    """K8: a CPU tensor runs ``selective_scan_plain``; any other device
+    launches the kernel or raises, and never runs the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import selective_scan as ssk
+
+    plain, launched = [], []
+    real_plain = ssk.selective_scan_plain
+    monkeypatch.setattr(ssk, "selective_scan_plain",
+                        lambda *a: plain.append(a[0].device) or real_plain(*a))
+    monkeypatch.setattr(_build, "launch", lambda *a: launched.append(a[0]))
+    args = [torch.ones(1, 3, 4, 8), torch.zeros(1, 3, 4, 8), torch.ones(1, 3, 8)]
+    y = ssk.selective_scan(*args)
+    assert plain == [torch.device("cpu")] and not launched
+    assert torch.allclose(y, torch.zeros(1, 3, 4))
+    meta = [a.to("meta") for a in args]
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        ssk.selective_scan(*meta)
+    assert plain == [torch.device("cpu")] and not launched

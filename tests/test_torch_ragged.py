@@ -146,7 +146,7 @@ def test_plain_path_counts_no_launch():
         "ragged_gf256_tiles", "ragged_xor_tiles",
         "ragged_gf256_encode_tiles", "ragged_xor_encode_tiles",
         "gf256_matmul_planes", "gf256_matmul_planes_batched",
-        "xor_parity", "xor_parity_batched",
+        "xor_parity", "xor_parity_batched", "selective_scan",
     }
     assert all(n == 0 for n in _build.LAUNCHES.values())
 

@@ -1,0 +1,184 @@
+"""The port's serving path against the JAX package's: the launcher's
+continuous-batching loop, the SlotManager, cache sizing, greedy sampling
+and the config registry.
+
+The serve loop runs the reduced falcon-mamba on the same float32 weights
+(the JAX package's ``init_lm``, cast, carried across by
+``models/convert.py``) and the same prompts (drawn as the JAX launcher
+draws them): every request must generate the same tokens. The
+reference's loop lives inside ``repro.launch.serve.main``; ``_jax_serve``
+below is that loop, line for line, on the JAX package's own parts.
+"""
+
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models.registry import get_model as jax_get_model  # noqa: E402
+from repro.models.shardings import SINGLE as JSINGLE  # noqa: E402
+from repro.models.shardings import ServePlan as JServePlan  # noqa: E402
+from repro.serve import kvcache as jkv  # noqa: E402
+from repro.serve.serve_step import greedy_sample as jax_greedy  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.launch.serve import serve_requests  # noqa: E402
+from repro_torch.models.convert import mamba_from_jax  # noqa: E402
+from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.serve import kvcache  # noqa: E402
+from repro_torch.serve.serve_step import greedy_sample  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CFG_J = jconfigs.get_config("falcon_mamba_7b").reduced()
+CFG = configs.get_config("falcon_mamba_7b").reduced()
+REQUESTS, BATCH, PROMPT, MAX_NEW, CACHE_LEN = 4, 2, 8, 4, 128
+
+
+def _jax_serve(params, prompts):
+    """src/repro/launch/serve.py's loop on the JAX package's parts."""
+    api = jax_get_model(CFG_J)
+    mgr = jkv.SlotManager(batch=BATCH, cache_len=CACHE_LEN)
+    for rid, prompt in enumerate(prompts):
+        mgr.submit(jkv.Request(rid, prompt, MAX_NEW))
+    cache = api.init_cache(CFG_J, BATCH, CACHE_LEN)
+    decode = jax.jit(lambda p, t, c, pos: api.decode(p, t, c, pos, CFG_J, JSINGLE,
+                                                     JServePlan()))
+
+    def prefill_into_slot(slot, req, cache):
+        for j, t in enumerate(req.prompt[:-1]):
+            tok = np.zeros((BATCH, 1), np.int32)
+            tok[slot, 0] = t
+            _, cache = decode(params, jnp.asarray(tok), cache, jnp.asarray(j))
+        return cache
+
+    step = 0
+    while mgr.live or mgr.waiting:
+        for slot, req in mgr.admit():
+            cache = prefill_into_slot(slot, req, cache)
+        tok = jnp.asarray(mgr.step_tokens())
+        pos = int(mgr.pos.max() - 1) if mgr.pos.max() else 0
+        logits, cache = decode(params, tok, cache, jnp.asarray(pos))
+        mgr.record(np.asarray(jax_greedy(logits))[:, 0])
+        step += 1
+        if step > REQUESTS * (MAX_NEW + PROMPT) + 100:
+            break
+    return mgr.finished
+
+
+@pytest.fixture
+def one_thread():
+    """Tiny ops: torch's thread pool costs more than it saves."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_serve_loop_generates_the_references_tokens(one_thread):
+    rng = jax.random.PRNGKey(0)
+    api_j = jax_get_model(CFG_J)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32), api_j.init(CFG_J, rng))
+    prompts = [
+        np.asarray(jax.random.randint(jax.random.fold_in(rng, rid), (PROMPT,), 0,
+                                      CFG_J.vocab_size), np.int32)
+        for rid in range(REQUESTS)
+    ]
+    want = [(r.rid, r.generated) for r in _jax_serve(params, prompts)]
+    model = mamba_from_jax(jax.tree.map(np.asarray, params), CFG, device="cpu")
+    got = serve_requests(get_model(CFG), model, CFG, prompts, batch=BATCH,
+                         max_new=MAX_NEW, cache_len=CACHE_LEN)
+    assert [(r.rid, r.generated) for r in got] == want
+    assert len(want) == REQUESTS and all(len(g) == MAX_NEW for _, g in want)
+
+
+def _state(mgr):
+    return (
+        [None if r is None else r.rid for r in mgr.slots],
+        mgr.pos.tolist(),
+        [r.rid for r in mgr.waiting],
+        [(r.rid, list(r.generated)) for r in mgr.finished],
+        mgr.live,
+    )
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_slot_manager_is_the_references(seed):
+    """Random submit / admit / record sequences through both SlotManagers."""
+    rng = np.random.default_rng(seed)
+    batch, cache_len = int(rng.integers(1, 5)), int(rng.integers(4, 12))
+    port, ref = kvcache.SlotManager(batch, cache_len), jkv.SlotManager(batch, cache_len)
+    for rid in range(int(rng.integers(3, 10))):
+        prompt = rng.integers(0, 100, int(rng.integers(1, 7))).astype(np.int32)
+        max_new = int(rng.integers(1, 6))
+        port.submit(kvcache.Request(rid, prompt, max_new))
+        ref.submit(jkv.Request(rid, prompt, max_new))
+    for _ in range(60):
+        if rng.random() < 0.3:
+            assert ([(s, r.rid) for s, r in port.admit()]
+                    == [(s, r.rid) for s, r in ref.admit()])
+        np.testing.assert_array_equal(port.step_tokens(), ref.step_tokens())
+        nxt = rng.integers(0, 100, batch).astype(np.int32)
+        port.record(nxt)
+        ref.record(nxt)
+        assert _state(port) == _state(ref)
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("batch,cache_len", [(1, 128), (4, 128), (128, 32768)])
+def test_cache_bytes(reduced, batch, cache_len):
+    cfg, cfg_j = (CFG, CFG_J) if reduced else (configs.get_config("falcon_mamba_7b"),
+                                               jconfigs.get_config("falcon_mamba_7b"))
+    assert (kvcache.cache_bytes(cfg, get_model(cfg), batch, cache_len)
+            == jkv.cache_bytes(cfg_j, jax_get_model(cfg_j), batch, cache_len))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_greedy_sample_takes_the_first_maximum(seed):
+    rng = np.random.default_rng(seed)
+    logits = rng.integers(0, 4, (6, 32)).astype(np.float32)  # many ties
+    got = greedy_sample(torch.from_numpy(logits))
+    assert got.dtype == torch.int32 and got.shape == (6, 1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_greedy(jnp.asarray(logits))))
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_config_registry(arch):
+    """The reference's ids; the ported family resolves to the reference's
+    config, the others raise until their slice."""
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    want = jconfigs.get_config(arch)
+    if arch in configs.PORTED:
+        cfg = configs.get_config(arch.replace("_", "-"))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+        assert get_model(cfg).family == want.family
+        with pytest.raises(NotImplementedError, match="training"):
+            get_model(cfg).loss(None, None, cfg, None)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            configs.get_config(arch)
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            get_model(want)
+    with pytest.raises(KeyError):
+        configs.get_config("no_such_arch")
+
+
+def test_launcher_serves_on_the_cpu_when_asked():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "falcon_mamba_7b",
+         "--reduced", "--device", "cpu", "--requests", "3", "--batch", "2",
+         "--prompt-len", "6", "--max-new", "3"],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "served 3 requests, 9 tokens" in proc.stdout

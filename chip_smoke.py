@@ -11,9 +11,15 @@ Phases, in order; any failure raises and exits non-zero:
    every kernel from ``src/repro_torch/kernels/csrc/*.cu`` and its time;
 2. each tile kernel (K1-K4) against its plain torch version on the card,
    ``torch.equal`` over C in {4, 32}, K in {1, 3, 6, 9}, TN in {128, 1024,
-   4096} plus zero-padded tiles; then its time at the main-path shape
-   (C = 32, TN = 4096, K = 6 for GF and 3 for XOR) beside the plain
-   version's and the least time the card could take. Then the matrix
+   4096} plus zero-padded tiles, then over the edges of the bodies'
+   source-group partitioning (K in {1, 2, 3, 5, 6, 9, 16}, TN in {16,
+   128, 1040, 4096, 65536}, and K = 1600); then its times (K = 6 for GF,
+   3 for XOR) at the main-path shape (C = 32, TN = 4096), the small chunk
+   rung (C = 4) and phase 5's widest tile (TN = 65536): the median and
+   least wrapper time, the device time on warm inputs beside the launch
+   floor's (a 16-byte ``fill_`` in the same trace) and on cold ones
+   (inputs rotated through four times the L2), the least time the card
+   could take, and at the main-path shape the plain version's. Then the matrix
    kernels (K5, K6, K7, K7 batched) through ``kernels.ops`` against their
    plain versions over M in {1, 3}, K in {1, 3, 6, 9}, B in {1, 4}, N in
    {128, 4096, 5000, 2^20} (padding included); their times at the 64 MiB
@@ -45,8 +51,9 @@ Phases, in order; any failure raises and exits non-zero:
    scan K8 against its plain version over B in {1, 4}, S in {1, 16, 128},
    D in {256, 8192}, N in {8, 16}, with and without h0, y and h_last at
    rtol = atol = 2e-5, then its times at the prefill chunk (1, 128, 8192,
-   16); (b) the reduced config in float32 on the card and on the CPU from
-   the same weights: prefill logits within rtol = atol = 1e-4 and the
+   16) and at the decode step (4, 1, 8192, 16); (b) the reduced config
+   in float32 on the card and on the CPU from the same weights: prefill
+   logits within rtol = atol = 1e-4 and the
    greedy tokens of a short serve identical; (c) full width and full depth
    (64 layers, bf16 weights drawn from ``--seed`` on the card): a warm-up
    and a profiled 2,048-token prefill (its device breakdown), then the 32,768-token
@@ -57,8 +64,14 @@ Phases, in order; any failure raises and exits non-zero:
    logits finite, every request finished, every token in the vocabulary,
    K8 launched on both paths.
 
+``--tiles-only`` stops after phase 1 and the tile kernels' times (no
+check, no result line). The script imports ``repro_torch`` from the
+``src/`` beside it, so a copy of it placed in another checkout times that
+checkout's kernels.
+
 The last three lines are the kernels' JSON record (each kernel's
-``launches`` from the path that runs it: phase 4 for K1-K4, the codec
+``launches`` from the path that runs it: phase 4 for K1 and K2, phases 4
+and 5 for K3 and K4, the codec
 path for K5 and K7, phase 5 for K6 and K7 batched, phase 6(c)'s prefill
 and serve for K8), the card's name and power limit again, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -69,6 +82,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import itertools
 import json
 import pathlib
 import statistics
@@ -87,6 +101,15 @@ INT_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 BLOCK_BYTES = 64 * 1024 * 1024  # Hadoop dfs.block.size = 67108864
 MAIN_C, MAIN_TN = 32, 4096
+# (C, TN) at which each tile kernel is timed: the main path, the small
+# chunk rung, and the widest tuned tile of phase 5
+TILE_SHAPES = ((MAIN_C, MAIN_TN), (4, MAIN_TN), (MAIN_C, 65536))
+# the launch floor: the device time of the smallest PyTorch kernel,
+# torch.empty(16, dtype=torch.uint8, device="cuda").fill_(0)
+FLOOR_KERNEL = "FillFunctor"
+# bytes of distinct tiles a cold timing rotates through: four times the
+# H100's 50 MB L2, so a launch finds none of its sources there
+COLD_BYTES = 200 * 1000 * 1000
 
 # (C entry, TPU kernel it replaces, GF (else XOR), K at the main-path shape)
 KERNELS = (
@@ -113,17 +136,24 @@ SCAN_SOURCE = "src/repro_torch/kernels/csrc/selective_scan.cu"
 SCAN_REPLACES = "src/repro/kernels/selective_scan.py:57"
 SCAN_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_selective_scan_kernel.py
 PREFILL_CHUNK = (1, 128, 8192, 16)  # (B, S, D, N): one scan_chunk of falcon-mamba-7b
+DECODE_STEP = (4, 1, 8192, 16)  # the launcher's decode call at batch 4
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def time_ms(torch, fn, samples: int = 25, per_sample: int = 20) -> float:
-    """Median device time of one call, from CUDA events around
-    ``per_sample`` back-to-back calls."""
-    for _ in range(5):
+def time_samples(torch, fn, samples: int = 25, per_sample: int = 20) -> list[float]:
+    """Per-call times (ms) of ``samples`` runs of ``per_sample``
+    back-to-back calls, each run timed with CUDA events, after a warm-up
+    of at least 5 calls and 50 ms (a host path of microseconds needs
+    thousands of calls before its time settles)."""
+    calls, t0 = 0, time.perf_counter()
+    while calls < 5 or time.perf_counter() - t0 < 0.05:
         fn()
+        calls += 1
+        if calls % 64 == 0:
+            torch.cuda.synchronize()
     torch.cuda.synchronize()
     times = []
     for _ in range(samples):
@@ -135,30 +165,48 @@ def time_ms(torch, fn, samples: int = 25, per_sample: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / per_sample)
-    return statistics.median(times)
+    return times
 
 
-def device_ms(torch, fn, kernel_name: str, reps: int = 50) -> float | None:
-    """Mean device time of one launch of ``kernel_name`` from a
-    torch.profiler (CUPTI) trace of ``reps`` calls (one launch each),
-    over the launches the trace holds; None when it holds none. A trace
-    that lost launches is reported."""
+def time_ms(torch, fn, samples: int = 25, per_sample: int = 20) -> float:
+    """Median time of one call, from CUDA events around ``per_sample``
+    back-to-back calls."""
+    return statistics.median(time_samples(torch, fn, samples, per_sample))
+
+
+def device_times(torch, fn, names: tuple[str, ...], reps: int = 50) -> list[float | None]:
+    """Mean device time (ms) of one launch of each kernel whose name holds
+    one of ``names``, from a torch.profiler (CUPTI) trace of ``reps``
+    calls of ``fn`` (one launch of each per call), over the launches the
+    trace holds; None for a name it holds none of. A trace that lost
+    launches is reported, and one that lost half of them or more is taken
+    again, up to three times in all."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if kernel_name in ev.key and getattr(ev, "device_time_total", 0.0):
-            total_us += ev.device_time_total
-            count += ev.count
-    if count != reps:
-        log(f"device_ms({kernel_name}): the trace holds {count} of {reps} launches")
-    return total_us / count / 1e3 if count else None
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        sums = {name: [0.0, 0] for name in names}
+        for ev in prof.key_averages():
+            for name in names:
+                if name in ev.key and getattr(ev, "device_time_total", 0.0):
+                    sums[name][0] += ev.device_time_total
+                    sums[name][1] += ev.count
+        for name, (_us, count) in sums.items():
+            if count != reps:
+                log(f"device_times({name}): the trace holds {count} of {reps} launches")
+        if all(2 * count > reps for _us, count in sums.values()):
+            break
+    return [us / count / 1e3 if count else None for us, count in sums.values()]
+
+
+def device_ms(torch, fn, kernel_name: str, reps: int = 50) -> float | None:
+    """``device_times`` of one kernel."""
+    return device_times(torch, fn, (kernel_name,), reps)[0]
 
 
 def tiles(np, torch, rng, c, kk, tn, *, pad: bool):
@@ -179,47 +227,111 @@ def tiles(np, torch, rng, c, kk, tn, *, pad: bool):
     return torch.from_numpy(mc).cuda(), torch.from_numpy(data).cuda()
 
 
-def check_kernels(np, torch, seed: int) -> list[dict]:
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import ragged_decode as rdk
+def tile_bound_ms(c: int, kk: int, tn: int, is_gf: bool) -> tuple[float, str]:
+    """Least time of one tile launch: sources, planes and output moved
+    once at the HBM rate, or its integer operations at the int8 rate."""
+    nbytes = c * kk * tn + c * tn + (c * kk * 8 if is_gf else 0)
+    # a GF multiply and an XOR per source byte; an XOR per extra slab
+    nops = (2 * kk if is_gf else kk - 1) * c * tn
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = nops / INT_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
-    entry = {
+
+def time_tile_shapes(np, torch, rng, name: str, kernel, is_gf: bool, kk: int) -> list[dict]:
+    """``kernel`` at each of TILE_SHAPES with K = ``kk``: the median and
+    least of its per-call times (CUDA events over back-to-back wrapper
+    calls), its device time and the launch floor's from one profiler
+    trace on warm inputs (the same tiles every launch, so they stay in
+    the L2), its device time on cold inputs (each launch takes the next
+    of COLD_BYTES of tiles made on the card), and its bound."""
+    kname = "gf_tiles_kernel" if is_gf else "xor_tiles_kernel"
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(1 << 31)))
+    out = []
+    for c, tn in TILE_SHAPES:
+        mc, data = tiles(np, torch, rng, c, kk, tn, pad=False)
+        samples = time_samples(torch, lambda: kernel(mc, data))
+        dev, floor = device_times(
+            torch,
+            lambda: (kernel(mc, data), torch.empty(16, dtype=torch.uint8, device="cuda").fill_(0)),
+            (kname, FLOOR_KERNEL),
+        )
+        # the planes (C x K x 8 bytes) stay the same: the work does not
+        # depend on their values
+        pool = torch.randint(0, 256, (-(-COLD_BYTES // data.numel()), *data.shape),
+                             dtype=torch.uint8, device="cuda", generator=gen)
+        turn = itertools.count()
+        cold = device_ms(torch, lambda: kernel(mc, pool[next(turn) % len(pool)]), kname)
+        del pool
+        bound, by = tile_bound_ms(c, kk, tn, is_gf)
+        rec = {"C": c, "K": kk, "TN": tn, "ms": statistics.median(samples),
+               "ms_min": min(samples), "device_ms": dev, "floor_ms": floor,
+               "device_ms_cold": cold, "bound_ms": bound, "bound_by": by}
+        log(f"kernel {name} at C={c} K={kk} TN={tn}: ms median {rec['ms']:.6f} min "
+            f"{rec['ms_min']:.6f} device_ms={dev} floor_ms={floor} device_ms_cold={cold} "
+            f"bound_ms={bound:.6f} ({by})")
+        out.append(rec)
+    return out
+
+
+def tile_entries():
+    """C entry -> its port entry, called as (mc, data) for all four."""
+    from repro_torch.kernels import ops
+
+    return {
         "ragged_gf256_tiles": ops.gf256_ragged,
         "ragged_xor_tiles": lambda mc, d: ops.xor_ragged(d),
         "ragged_gf256_encode_tiles": ops.gf256_ragged_encode,
         "ragged_xor_encode_tiles": lambda mc, d: ops.xor_ragged_encode(d),
     }
+
+
+def tile_cases():
+    """(C, K, TN, pad) of the equality check: the 48 main cases, then the
+    edges of the tile bodies' partitioning (TN from one vector to the
+    widest tuned tile and one not a multiple of a block's bytes, K not a
+    multiple of any source-group size, and one K above 1536)."""
+    for c in (4, 32):
+        for kk in (1, 3, 6, 9):
+            for tn in (128, 1024, 4096):
+                for pad in (False, True):
+                    yield c, kk, tn, pad
+    for c in (4, 32):
+        for kk in (1, 2, 3, 5, 6, 9, 16):
+            for tn in (16, 128, 1040, 4096, 65536):
+                for pad in (False, True):
+                    yield c, kk, tn, pad
+    for tn in (16, 1040):
+        yield 4, 1600, tn, True
+
+
+def check_kernels(np, torch, seed: int) -> list[dict]:
+    from repro_torch.kernels import ragged_decode as rdk
+
+    entry = tile_entries()
     rng = np.random.default_rng(seed)
     rows = []
     for name, replaces, is_gf, main_k in KERNELS:
         kernel = entry[name]
         plain = rdk.gf_tiles_plain if is_gf else (lambda mc, d: rdk.xor_tiles_plain(d))
         cases = 0
-        for c in (4, 32):
-            for kk in (1, 3, 6, 9):
-                for tn in (128, 1024, 4096):
-                    for pad in (False, True):
-                        mc, data = tiles(np, torch, rng, c, kk, tn, pad=pad)
-                        got = kernel(mc, data)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, plain(mc, data)):
-                            raise AssertionError(f"{name} != plain at C={c} K={kk} TN={tn} pad={pad}")
-                        cases += 1
+        for c, kk, tn, pad in tile_cases():
+            mc, data = tiles(np, torch, rng, c, kk, tn, pad=pad)
+            got = kernel(mc, data)
+            torch.cuda.synchronize()
+            if not torch.equal(got, plain(mc, data)):
+                raise AssertionError(f"{name} != plain at C={c} K={kk} TN={tn} pad={pad}")
+            cases += 1
         mc, data = tiles(np, torch, rng, MAIN_C, main_k, MAIN_TN, pad=False)
         got, want = kernel(mc, data), plain(mc, data)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
         if err:
             raise AssertionError(f"{name}: max_abs_err {err} at the main-path shape")
-        ms = time_ms(torch, lambda: kernel(mc, data))
         plain_ms = time_ms(torch, lambda: plain(mc, data), samples=9, per_sample=3)
-        dev_ms = device_ms(torch, lambda: kernel(mc, data),
-                           "gf_tiles_kernel" if is_gf else "xor_tiles_kernel")
-        nbytes = data.numel() + MAIN_C * MAIN_TN + (mc.numel() if is_gf else 0)
-        # a GF multiply and an XOR per source byte; an XOR per extra slab
-        nops = (2 * main_k if is_gf else main_k - 1) * MAIN_C * MAIN_TN
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = nops / INT_OPS_PER_S * 1e3
+        shapes = time_tile_shapes(np, torch, rng, name, kernel, is_gf, main_k)
+        main = shapes[0]  # TILE_SHAPES[0] is the main-path shape
         row = {
             "name": name,
             "route": "cuda",
@@ -227,17 +339,19 @@ def check_kernels(np, torch, seed: int) -> list[dict]:
             "replaces": replaces,
             "launches": 0,
             "max_abs_err": err,
-            "ms": ms,
+            "ms": main["ms"],
             "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
             "library_ms": None,  # no single PyTorch call computes it
-            "device_ms": dev_ms,  # kernel alone, from the profiler trace
+            "device_ms": main["device_ms"],  # kernel alone, from the profiler trace
+            "shapes": shapes,
         }
         log(
             f"kernel {name}: equal to plain on {cases} cases; C={MAIN_C} K={main_k} "
-            f"TN={MAIN_TN}: kernel_ms={ms:.6f} device_ms={dev_ms} plain_ms={plain_ms:.6f} "
-            f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) library_ms=null"
+            f"TN={MAIN_TN}: kernel_ms={main['ms']:.6f} device_ms={main['device_ms']} "
+            f"plain_ms={plain_ms:.6f} bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+            f"library_ms=null"
         )
         rows.append(row)
     return rows
@@ -643,6 +757,15 @@ def check_scan_kernel(torch, seed: int) -> dict:
         f"(max_abs_err {err}); {PREFILL_CHUNK} with h0: kernel_ms={ms:.6f} "
         f"device_ms={dev_ms} plain_ms={plain_ms:.6f} bound_ms={row['bound_ms']:.6f} "
         f"({row['bound_by']}, {nbytes} bytes) library_ms=null")
+    # the decode step's shape: one token for each of 4 slots, from h0
+    b, s, d, n = DECODE_STEP
+    da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
+    kernel = lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True)  # noqa: E731
+    nbytes = 4 * (2 * b * s * d * n + b * s * n + b * d * n + b * s * d + b * d * n)
+    row["decode"] = {"shape": list(DECODE_STEP), "ms": time_ms(torch, kernel),
+                     "device_ms": device_ms(torch, kernel, "selective_scan_kernel"),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+    log(f"kernel selective_scan: {DECODE_STEP} with h0: {json.dumps(row['decode'])}")
     del da, dbu, cm, h0, y, h, want_y, want_h
     torch.cuda.empty_cache()
     return row
@@ -804,6 +927,9 @@ def full_width_model(np, torch, seed: int) -> dict[str, int]:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tiles-only", action="store_true",
+                    help="build, then time the tile kernels K1-K4 at TILE_SHAPES, and stop "
+                         "(no equality check, no other phase, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -830,6 +956,14 @@ def main() -> int:
             log(f"ptxas: {line.strip()}")
 
     t_start = time.perf_counter()
+    if args.tiles_only:
+        rng = np.random.default_rng(args.seed)
+        entry = tile_entries()
+        shapes = {name: time_tile_shapes(np, torch, rng, name, entry[name], is_gf, kk)
+                  for name, _r, is_gf, kk in KERNELS}
+        log(json.dumps({"tile_shapes": shapes}))
+        log(smi)
+        return 0
     rows = check_kernels(np, torch, args.seed)
     matrix_rows = check_matrix_kernels(np, torch, args.seed)
     codec = codec_path(np, torch, args.seed)
@@ -855,6 +989,11 @@ def main() -> int:
               "gf256_matmul_planes_batched": bucketed, "xor_parity_batched": bucketed}
     for row in rows + matrix_rows:
         row["launches"] = source.get(row["name"], ragged)[row["name"]]
+    # the encode tiles run on both serves' PUTs: their count is the sum
+    for row in rows:
+        if "encode" in row["name"]:
+            row["launches_by_phase"] = {"4": ragged[row["name"]], "5": bucketed[row["name"]]}
+            row["launches"] += bucketed[row["name"]]
     log(json.dumps({"kernels": rows + matrix_rows + [scan_row]}))
     log(smi)
     print(json.dumps({

@@ -15,7 +15,8 @@ flags, so a stale build is never loaded. ``nvcc`` is looked up on
 
 ``launch`` is the one place a kernel is launched: it calls the C entry,
 raises on a non-zero ``cudaGetLastError()``, and counts the launch in
-``LAUNCHES`` (plain ints, keyed by entry name).
+``LAUNCHES`` (plain ints, keyed by entry name). The entries are looked
+up and typed once, when the library loads (``bind``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,9 @@ ENTRIES = {
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRIES}
 
 _lib: ctypes.CDLL | None = None
+# C entry -> its ctypes function, argtypes set: resolved once, when the
+# library loads, so a launch takes no lock and looks nothing up
+_fns: dict | None = None
 _lock = threading.Lock()
 build_seconds: float | None = None  # wall time of this process's build
 build_log: str = ""  # nvcc's output (ptxas register / shared-memory report)
@@ -128,28 +132,44 @@ def build() -> pathlib.Path:
     return out
 
 
+def bind(lib) -> dict:
+    """The C entries of ``lib`` (a loaded ``ctypes.CDLL``) by name, with
+    their argument and return types set, and its error-string helper."""
+    fns = {}
+    for name, argtypes in ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    fn = lib.ragged_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    fns["ragged_error_string"] = fn
+    return fns
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built at first call."""
-    global _lib
+    """The loaded kernel library, built and bound at first call."""
+    global _lib, _fns
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            for name, argtypes in ENTRIES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.ragged_error_string.argtypes = [ctypes.c_int]
-            lib.ragged_error_string.restype = ctypes.c_char_p
+            _fns = bind(lib)
             _lib = lib
         return _lib
 
 
+def _bound() -> dict:
+    library()
+    return _fns
+
+
 def launch(name: str, *args) -> None:
     """Launch C entry ``name`` and count it; raise if CUDA refused it."""
-    lib = library()
-    rc = getattr(lib, name)(*args)
+    fns = _fns or _bound()
+    rc = fns[name](*args)
     if rc != 0:
-        msg = lib.ragged_error_string(rc).decode()
+        msg = fns["ragged_error_string"](rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
     LAUNCHES[name] += 1
 

@@ -35,6 +35,8 @@ def as_u8(x, device: str | torch.device | None = None) -> torch.Tensor:
     its own device unless ``device`` names another; a numpy array goes
     to ``resolve_device(device)``."""
     if isinstance(x, torch.Tensor):
+        if x.dtype == torch.uint8 and (device is None or x.device == device):
+            return x
         t = x if device is None else x.to(resolve_device(device))
     else:
         t = torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
@@ -57,6 +59,13 @@ def check_cuda_operands(width: int, what: str, *tensors: torch.Tensor) -> None:
             raise ValueError("operands must be contiguous")
     if tensors[0].data_ptr() % 16:
         raise ValueError("data must be 16-byte aligned for vector loads")
+
+
+def raw_stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``
+    (a CUDA device with an index), read without building a
+    ``torch.cuda.Stream`` object: what a kernel launch is given."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def synchronize(device: torch.device) -> None:

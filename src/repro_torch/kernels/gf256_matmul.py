@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.coding import gf256
 from repro_torch.kernels import _build
-from repro_torch.kernels.backend import check_cuda_operands
+from repro_torch.kernels.backend import check_cuda_operands, raw_stream
 
 DEFAULT_BLOCK_N = 32768
 
@@ -79,7 +79,7 @@ def _launch(mc: torch.Tensor, data: torch.Tensor, block_n: int, batched: bool) -
     *lead, m, kk, _ = mc.shape
     n = data.shape[-1]
     out = torch.empty((*lead, m, n), dtype=torch.uint8, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
+    stream = raw_stream(data.device)
     if batched:
         _build.launch("gf256_matmul_planes_batched", mc.data_ptr(), data.data_ptr(),
                       out.data_ptr(), lead[0], m, kk, n, block_n, stream)

@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.backend import check_cuda_operands
+from repro_torch.kernels.backend import check_cuda_operands, raw_stream
 
 # Launch-size rungs, in tiles. Two rungs bound the launch signatures per
 # kind at 2 while keeping null-tile padding under CHUNK_SMALL per window
@@ -84,41 +84,54 @@ def xor_tiles_plain(data: torch.Tensor) -> torch.Tensor:
 
 
 # -- launch helpers shared with ragged_encode --------------------------------
+# Every check runs once per call: the tile contract first (any device),
+# then, for a tensor not on the CPU, what the CUDA bodies take.
 
-def _check(data: torch.Tensor, mc: torch.Tensor | None) -> None:
-    if data.dtype != torch.uint8 or data.dim() != 3:
-        raise ValueError(f"data must be (C, K, TN) uint8, got {data.dtype} {tuple(data.shape)}")
-    c, kk, _tn = data.shape
+def _check(data: torch.Tensor, mc: torch.Tensor | None) -> torch.Size:
+    """The tile contract on any device; returns data's (C, K, TN)."""
+    shape = data.shape
+    if data.dtype != torch.uint8 or len(shape) != 3:
+        raise ValueError(f"data must be (C, K, TN) uint8, got {data.dtype} {tuple(shape)}")
+    c, kk, _tn = shape
     if c == 0 or kk == 0:
-        raise ValueError(f"empty tile set {tuple(data.shape)}")
+        raise ValueError(f"empty tile set {tuple(shape)}")
     if mc is not None:
-        if mc.dtype != torch.uint8 or tuple(mc.shape) != (c, kk, 8):
+        if mc.dtype != torch.uint8 or mc.shape != (c, kk, 8):
             raise ValueError(f"mc must be (C, K, 8) uint8, got {tuple(mc.shape)}")
         if mc.device != data.device:
             raise ValueError(f"mc on {mc.device}, data on {data.device}")
+    return shape
+
+
+def _check_cuda(data: torch.Tensor, mc: torch.Tensor | None, tn: int) -> None:
+    """``check_cuda_operands`` for the tiles, and ``mc`` 8-byte aligned:
+    the GF body reads a tile's (k, 8) planes as one 8-byte word."""
+    if mc is None:
+        check_cuda_operands(tn, "tile width", data)
+        return
+    check_cuda_operands(tn, "tile width", data, mc)
+    if mc.data_ptr() % 8:
+        raise ValueError("mc must be 8-byte aligned for its plane loads")
 
 
 def launch_gf(entry: str, mc: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    _check(data, mc)
+    c, kk, tn = _check(data, mc)
     if data.device.type == "cpu":
         return gf_tiles_plain(mc, data)
-    check_cuda_operands(data.shape[-1], "tile width", data, mc)
-    c, kk, tn = data.shape
-    out = torch.empty((c, tn), dtype=torch.uint8, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    _build.launch(entry, mc.data_ptr(), data.data_ptr(), out.data_ptr(), c, kk, tn, stream)
+    _check_cuda(data, mc, tn)
+    out = data.new_empty((c, tn))
+    _build.launch(entry, mc.data_ptr(), data.data_ptr(), out.data_ptr(), c, kk, tn,
+                  raw_stream(data.device))
     return out
 
 
 def launch_xor(entry: str, data: torch.Tensor) -> torch.Tensor:
-    _check(data, None)
+    c, kk, tn = _check(data, None)
     if data.device.type == "cpu":
         return xor_tiles_plain(data)
-    check_cuda_operands(data.shape[-1], "tile width", data)
-    c, kk, tn = data.shape
-    out = torch.empty((c, tn), dtype=torch.uint8, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
-    _build.launch(entry, data.data_ptr(), out.data_ptr(), c, kk, tn, stream)
+    _check_cuda(data, None, tn)
+    out = data.new_empty((c, tn))
+    _build.launch(entry, data.data_ptr(), out.data_ptr(), c, kk, tn, raw_stream(data.device))
     return out
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.backend import raw_stream
 
 
 def selective_scan_plain(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor,
@@ -76,7 +77,7 @@ def selective_scan(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor, *,
     b, s, d, n = da.shape
     y = torch.empty((b, s, d), dtype=torch.float32, device=da.device)
     h_last = torch.empty((b, d, n), dtype=torch.float32, device=da.device) if return_state else None
-    stream = torch.cuda.current_stream(da.device).cuda_stream
+    stream = raw_stream(da.device)
     _build.launch("selective_scan", da.data_ptr(), dbu.data_ptr(), cm.data_ptr(),
                   None if h0 is None else h0.data_ptr(), y.data_ptr(),
                   None if h_last is None else h_last.data_ptr(), b, s, d, n, stream)

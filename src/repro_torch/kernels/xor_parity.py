@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.backend import check_cuda_operands
+from repro_torch.kernels.backend import check_cuda_operands, raw_stream
 
 DEFAULT_BLOCK_N = 65536
 
@@ -40,7 +40,7 @@ def _launch(data: torch.Tensor, block_n: int, batched: bool) -> torch.Tensor:
         return xor_rows_plain(data)
     check_cuda_operands(block_n, "block_n", data)
     out = torch.empty((*data.shape[:-2], n), dtype=torch.uint8, device=data.device)
-    stream = torch.cuda.current_stream(data.device).cuda_stream
+    stream = raw_stream(data.device)
     if batched:
         b, t, _ = data.shape
         _build.launch("xor_parity_batched", data.data_ptr(), out.data_ptr(), b, t, n,

@@ -1,4 +1,5 @@
-"""The port on the card: each CUDA tile kernel (K1-K4) and matrix kernel
+"""The port on the card: each CUDA tile kernel (K1-K4, with the edges of
+its source-group partitioning and every group count) and matrix kernel
 (K5, K6, K7, K7 batched) against its plain torch version, and the codec's
 device path against its CPU path, byte for byte; the selective scan (K8)
 against its plain version at rtol = atol = 2e-5. Every test is marked
@@ -70,6 +71,54 @@ def test_kernel_matches_plain(name, card):
                         _run(name, mc, data, card), _run(name, mc, data, "cpu")
                     )
                     cases += 1
+    assert _build.LAUNCHES[name] == cases
+    assert sum(_build.LAUNCHES.values()) == cases
+
+
+def _edge_tiles(rng, c, kk, tn):
+    """Random tiles with every kind of staging zero at once: a null tile,
+    zero tails past a ragged length, zero trailing K rows."""
+    data = rng.integers(0, 256, (c, kk, tn), dtype=np.uint8)
+    coef = rng.integers(0, 256, (c, kk), dtype=np.uint8)
+    live_k, live_n = max(1, kk - kk // 3), max(1, tn - tn // 5 - 3)
+    data[:, live_k:] = 0
+    coef[:, live_k:] = 0
+    data[:, :, live_n:] = 0
+    data[c // 2] = 0
+    coef[c // 2] = 0
+    return expand_coeff_bitplanes(coef), data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(ENTRIES))
+def test_kernel_matches_plain_at_partition_edges(name, card):
+    """The boundaries of the tile bodies' partitioning: TN from one
+    vector to the widest tuned tile, and 1040, not a multiple of a
+    block's bytes; K from 1 to 16, with K = 3, 5, 6 and 9 not multiples
+    of a source-group size; both chunk rungs; unpadded and with null
+    tiles, zero tails and zero K rows. Then K = 1600, above the 1536
+    sources the first design's shared-memory splat held."""
+    rng = np.random.default_rng(17)
+    _build.reset_launches()
+    cases = 0
+    for c in (ragged_decode.CHUNK_SMALL, ragged_decode.CHUNK_BIG):
+        for kk in (1, 2, 3, 5, 6, 9, 16):
+            for tn in (16, 128, 1040, 4096, 65536):
+                for pad in (False, True):
+                    if pad:
+                        mc, data = _edge_tiles(rng, c, kk, tn)
+                    else:
+                        data = rng.integers(0, 256, (c, kk, tn), dtype=np.uint8)
+                        mc = expand_coeff_bitplanes(
+                            rng.integers(0, 256, (c, kk), dtype=np.uint8))
+                    np.testing.assert_array_equal(
+                        _run(name, mc, data, card), _run(name, mc, data, "cpu"),
+                        err_msg=f"C={c} K={kk} TN={tn} pad={pad}")
+                    cases += 1
+    for tn in (16, 1040):
+        mc, data = _edge_tiles(rng, 4, 1600, tn)
+        np.testing.assert_array_equal(_run(name, mc, data, card), _run(name, mc, data, "cpu"))
+        cases += 1
     assert _build.LAUNCHES[name] == cases
     assert sum(_build.LAUNCHES.values()) == cases
 

@@ -167,3 +167,142 @@ def test_selective_scan_takes_the_plain_path_only_on_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="CUDA device or the CPU"):
         ssk.selective_scan(*meta)
     assert plain == [torch.device("cpu")] and not launched
+
+
+# -- the tile kernels' launch path, driven without a card -------------------
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports itself on ``cuda:0``: it drives the
+    wrappers' CUDA path (checks, allocation, launch arguments) on a host
+    without a card, with ``_build.launch`` or its bound entries faked."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda_typed(t):
+    return t.as_subclass(_CudaTyped)
+
+
+class _FakeLib:
+    """Stands in for the loaded CDLL: every entry returns ``rc`` and each
+    attribute lookup is counted."""
+
+    def __init__(self, rc):
+        self.rc, self.lookups = rc, {}
+
+    def __getattr__(self, name):
+        self.lookups[name] = self.lookups.get(name, 0) + 1
+        if name == "ragged_error_string":
+            return lambda code: b"fake error"
+        return lambda *args: self.rc
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """Load ``_FakeLib(rc)`` in place of the built library, with the
+    current stream faked; returns a loader taking ``rc``."""
+    from repro_torch.kernels import _build, ragged_decode
+
+    monkeypatch.setattr(ragged_decode, "raw_stream", lambda device: 0)
+    monkeypatch.setattr(_build, "build", lambda: ROOT / "build" / "fake.so")
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_fns", None)
+
+    def load(rc):
+        lib = _FakeLib(rc)
+        monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: lib)
+        return lib
+
+    return load
+
+
+def _tile_operands(c=4, kk=3, tn=128):
+    mc = _cuda_typed(torch.zeros((c, kk, 8), dtype=torch.uint8))
+    return mc, _cuda_typed(torch.zeros((c, kk, tn), dtype=torch.uint8))
+
+
+def test_entries_are_resolved_once(fake_library):
+    """The C entries are looked up and typed when the library loads, not
+    on each launch."""
+    from repro_torch.kernels import _build, ops
+
+    lib = fake_library(0)
+    _build.reset_launches()
+    mc, data = _tile_operands()
+    for _ in range(3):
+        ops.gf256_ragged(mc, data)
+        ops.xor_ragged_encode(data)
+    assert _build.LAUNCHES["ragged_gf256_tiles"] == 3
+    assert _build.LAUNCHES["ragged_xor_encode_tiles"] == 3
+    assert set(lib.lookups) >= set(_build.ENTRIES)
+    assert all(n == 1 for n in lib.lookups.values()), lib.lookups
+
+
+@pytest.mark.parametrize("name", ["ragged_gf256_tiles", "ragged_xor_tiles",
+                                  "ragged_gf256_encode_tiles", "ragged_xor_encode_tiles"])
+def test_refused_launch_raises_and_counts_nothing(name, fake_library):
+    """A non-zero return of the C entry raises, naming the entry, and
+    leaves the launch count where it was."""
+    from repro_torch.kernels import _build, ops
+
+    fake_library(700)
+    _build.reset_launches()
+    mc, data = _tile_operands()
+    call = {
+        "ragged_gf256_tiles": lambda: ops.gf256_ragged(mc, data),
+        "ragged_xor_tiles": lambda: ops.xor_ragged(data),
+        "ragged_gf256_encode_tiles": lambda: ops.gf256_ragged_encode(mc, data),
+        "ragged_xor_encode_tiles": lambda: ops.xor_ragged_encode(data),
+    }[name]
+    with pytest.raises(RuntimeError, match=f"{name}: CUDA error 700 \\(fake error\\)"):
+        call()
+    assert all(n == 0 for n in _build.LAUNCHES.values())
+
+
+def _bad_operands():
+    """(what, mc, data, error pattern): each check of the tile launch path
+    failing alone, on CUDA-typed tensors."""
+    u8 = torch.uint8
+    base = torch.zeros((4, 3, 128 + 16), dtype=u8)
+    planes = torch.zeros((4 * 3 * 8 + 1,), dtype=u8)
+    good_mc = _cuda_typed(torch.zeros((4, 3, 8), dtype=u8))
+    return {
+        "dtype": (good_mc, _cuda_typed(torch.zeros((4, 3, 128), dtype=torch.int32)), "uint8"),
+        "rank": (good_mc, _cuda_typed(torch.zeros((4, 384), dtype=u8)), "uint8"),
+        "mc shape": (_cuda_typed(torch.zeros((4, 2, 8), dtype=u8)),
+                     _cuda_typed(torch.zeros((4, 3, 128), dtype=u8)), "mc must be"),
+        "empty": (_cuda_typed(torch.zeros((0, 3, 8), dtype=u8)),
+                  _cuda_typed(torch.zeros((0, 3, 128), dtype=u8)), "empty"),
+        "mc device": (torch.zeros((4, 3, 8), dtype=u8),
+                      _cuda_typed(torch.zeros((4, 3, 128), dtype=u8)), "mc on cpu"),
+        "width": (good_mc, _cuda_typed(torch.zeros((4, 3, 100), dtype=u8)),
+                  "not a multiple of 16"),
+        "contiguity": (good_mc, _cuda_typed(base[:, :, :128]), "contiguous"),
+        "data alignment": (good_mc, _cuda_typed(base.view(-1)[1 : 1 + 4 * 3 * 128].view(4, 3, 128)),
+                           "16-byte aligned"),
+        "mc alignment": (_cuda_typed(planes[1:].view(4, 3, 8)),
+                         _cuda_typed(torch.zeros((4, 3, 128), dtype=u8)), "8-byte aligned"),
+    }
+
+
+@pytest.mark.parametrize("what", ["dtype", "rank", "mc shape", "empty", "mc device", "width",
+                                  "contiguity", "data alignment", "mc alignment"])
+def test_tile_launch_checks_raise(what, fake_library):
+    """Every check of the tile launch path still raises ValueError for a
+    CUDA tensor, before anything is launched."""
+    from repro_torch.kernels import _build, ragged_decode, ragged_encode
+
+    lib = fake_library(0)
+    _build.reset_launches()
+    mc, data, pattern = _bad_operands()[what]
+    wrappers = [lambda: ragged_decode.ragged_gf256_tiles(mc, data),
+                lambda: ragged_encode.ragged_gf256_encode_tiles(mc, data)]
+    if what not in ("mc shape", "mc device", "mc alignment"):  # checks of the XOR kind too
+        wrappers += [lambda: ragged_decode.ragged_xor_tiles(data),
+                     lambda: ragged_encode.ragged_xor_encode_tiles(data)]
+    for call in wrappers:
+        with pytest.raises(ValueError, match=pattern):
+            call()
+    assert all(n == 0 for n in _build.LAUNCHES.values()) and not lib.lookups

@@ -27,7 +27,7 @@ from repro.kernels import ragged_decode as jrdk  # noqa: E402
 from repro.kernels.gf256_matmul import expand_coeff_bitplanes as jexpand  # noqa: E402
 from repro_torch.gateway import coalescer as tco  # noqa: E402
 from repro_torch.gateway.planner import DecodeOp  # noqa: E402
-from repro_torch.kernels import _build, ops, ragged_decode, ragged_encode  # noqa: E402
+from repro_torch.kernels import _build, autotune, ops, ragged_decode, ragged_encode  # noqa: E402
 from repro_torch.kernels.gf256_matmul import expand_coeff_bitplanes  # noqa: E402
 
 # (port entry, JAX entry, GF?) for K1-K4
@@ -73,13 +73,34 @@ def _run_jax(name, mc, data):
 # kernels: plain torch version vs the Pallas kernels (interpret mode)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(ENTRIES))
-@pytest.mark.parametrize("seed", range(3))
-def test_tile_kernel_matches_pallas(name, seed):
+def _card_widths(name):
+    """The port's CUDA tile-width candidates for the entry's kind."""
+    gf = ENTRIES[name][2]
+    table = autotune.RAGGED_GF_TILE_CANDIDATES if gf else autotune.RAGGED_XOR_TILE_CANDIDATES
+    return table["cuda"]
+
+
+# (name, seed, width): three seeds at random shapes, then each of the
+# card's tile widths at the small chunk rung (the shapes phase 5 of
+# chip_smoke.py launches the CUDA kernels at, whose yardstick on the card
+# is the plain version held here)
+_PALLAS_CASES = [
+    pytest.param(name, seed, None, id=f"{seed}-{name}")
+    for seed in range(3) for name in sorted(ENTRIES)
+] + [
+    pytest.param(name, i, tn, id=f"card{tn}-{name}")
+    for name in sorted(ENTRIES) for i, tn in enumerate(_card_widths(name))
+]
+
+
+@pytest.mark.parametrize("name, seed, width", _PALLAS_CASES)
+def test_tile_kernel_matches_pallas(name, seed, width):
     rng = np.random.default_rng(100 * seed + int(name[1]))
     c = int(rng.choice([jrdk.CHUNK_SMALL, jrdk.CHUNK_BIG]))
     kk = int(rng.choice([1, 3, 6, 9]))
     tn = int(rng.choice([128, 256, 512]))
+    if width is not None:
+        c, tn = jrdk.CHUNK_SMALL, width
     mc, data = _tiles(rng, c, kk, tn, pad=bool(seed % 2))
     got = _run_port(name, mc, data)
     assert got.shape == (c, tn) and got.dtype == np.uint8

@@ -48,10 +48,15 @@ Phases, in order; any failure raises and exits non-zero:
    beyond the autotune sweeps' probes, sweeps ran under ``cuda/`` keys,
    and the parity audit is clean;
 6. the model path, falcon-mamba-7b (the ssm family): (a) the selective
-   scan K8 against its plain version over B in {1, 4}, S in {1, 16, 128},
-   D in {256, 8192}, N in {8, 16}, with and without h0, y and h_last at
-   rtol = atol = 2e-5, then its times at the prefill chunk (1, 128, 8192,
-   16) and at the decode step (4, 1, 8192, 16); (b) the reduced config
+   scan K8 against its plain version over B in {1, 4, 32}, S in {1, 2, 3,
+   7, 8, 9, 16, 128} (one step, and every remainder of the float4 body's
+   4-step load batches), D in {200, 1000, 8192} (200 and 1000 leave a
+   ragged last block), N in {1, 2, 4, 8, 16, 32}, with and without h0:
+   y within rtol = atol = 2e-5 and h_last bit-equal; then its times at
+   the prefill chunk (1, 128, 8192, 16) and at the decode step (4, 1,
+   8192, 16), warm (the same inputs every launch) and cold (each launch
+   the next of 200 MB of input sets), with the plain version's and the
+   launch floor's; (b) the reduced config
    in float32 on the card and on the CPU from the same weights: prefill
    logits within rtol = atol = 1e-4 and the
    greedy tokens of a short serve identical; (c) full width and full depth
@@ -65,9 +70,11 @@ Phases, in order; any failure raises and exits non-zero:
    K8 launched on both paths.
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
-check, no result line). The script imports ``repro_torch`` from the
-``src/`` beside it, so a copy of it placed in another checkout times that
-checkout's kernels.
+check, no result line). ``--scan-only`` builds, prints ptxas's register
+and spill report for each K8 body, runs phase 6(a), times K8 at S in
+{1, 2, 4, ..., 128} for B in {1, 4}, and stops (no result line). The
+script imports ``repro_torch`` from the ``src/`` beside it, so a copy of
+it placed in another checkout times that checkout's kernels.
 
 The last three lines are the kernels' JSON record (each kernel's
 ``launches`` from the path that runs it: phase 4 for K1 and K2, phases 4
@@ -85,6 +92,7 @@ import gc
 import itertools
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -137,6 +145,13 @@ SCAN_REPLACES = "src/repro/kernels/selective_scan.py:57"
 SCAN_TOL = dict(rtol=2e-5, atol=2e-5)  # tests/test_selective_scan_kernel.py
 PREFILL_CHUNK = (1, 128, 8192, 16)  # (B, S, D, N): one scan_chunk of falcon-mamba-7b
 DECODE_STEP = (4, 1, 8192, 16)  # the launcher's decode call at batch 4
+# the K8 check's sweep: S = 1 (the float4 body's one-step instance) and
+# every remainder of its 4-step load batches, D not a multiple of a
+# block's channels, N from the scalar body's 1 and 2 to a warp's lanes
+SCAN_S = (1, 2, 3, 7, 8, 9, 16, 128)
+SCAN_N = (1, 2, 4, 8, 16, 32)
+SCAN_D = (200, 1000, 8192)
+SCAN_B = (1, 4, 32)
 
 
 def log(msg: str) -> None:
@@ -699,44 +714,90 @@ def scan_inputs(torch, b, s, d, n, seed):
             torch.randn((b, d, n), **f32))
 
 
+def scan_bytes(b, s, d, n) -> int:
+    """Bytes K8 must move: da, dbu, cm and h0 read once; y and h_last
+    written once."""
+    return 4 * (2 * b * s * d * n + b * s * n + b * d * n + b * s * d + b * d * n)
+
+
+def scan_times(torch, shape, seed: int) -> dict:
+    """K8 with h0 and h_last at ``shape``: the median and least wrapper
+    time (CUDA events), the device time warm (the same inputs every
+    launch) beside the launch floor's (a 16-byte ``fill_`` in the same
+    trace) and cold (each launch the next of COLD_BYTES of input sets),
+    the plain version's time and the bound."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    b, s, d, n = shape
+    da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
+    kernel = lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True)  # noqa: E731
+    samples = time_samples(torch, kernel)
+    dev, floor = device_times(
+        torch,
+        lambda: (kernel(), torch.empty(16, dtype=torch.uint8, device="cuda").fill_(0)),
+        ("selective_scan_kernel", FLOOR_KERNEL),
+    )
+    plain_ms = time_ms(torch, lambda: selective_scan_plain(da, dbu, cm, h0), samples=5,
+                       per_sample=2)
+    del da, dbu, cm, h0
+    nbytes = scan_bytes(b, s, d, n)
+    sets = -(-COLD_BYTES // (nbytes - 4 * (b * s * d + b * d * n)))  # input bytes per set
+    pool = [scan_inputs(torch, b, s, d, n, seed + 1 + i) for i in range(sets)]
+    turn = itertools.count()
+
+    def cold_call():
+        da, dbu, cm, h0 = pool[next(turn) % sets]
+        return selective_scan(da, dbu, cm, h0=h0, return_state=True)
+
+    cold = device_ms(torch, cold_call, "selective_scan_kernel")
+    del pool
+    torch.cuda.empty_cache()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 4 * b * s * d * n / F32_OPS_PER_S * 1e3  # h and y: a multiply and an add each
+    rec = {"shape": list(shape), "ms": statistics.median(samples), "ms_min": min(samples),
+           "device_ms": dev, "floor_ms": floor, "device_ms_cold": cold, "cold_sets": sets,
+           "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "bytes": nbytes}
+    log(f"kernel selective_scan at {shape} with h0: {json.dumps(rec)}")
+    return rec
+
+
 def check_scan_kernel(torch, seed: int) -> dict:
-    """Phase 6(a): K8 against its plain version over the sweep, then its
-    times at the prefill chunk with h0."""
+    """Phase 6(a): K8 against its plain version over the sweep (y and
+    h_last within SCAN_TOL, h_last bit-equal: both update h with a
+    multiply, then an add), then its times at the prefill chunk and at
+    the decode step."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
     cases, err = 0, 0.0
-    for b in (1, 4):
-        for s in (1, 16, 128):
-            for d in (256, 8192):
-                for n in (8, 16):
-                    da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed + cases)
-                    for start in (None, h0):
-                        y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
-                        want_y, want_h = selective_scan_plain(da, dbu, cm, start)
-                        torch.cuda.synchronize()
-                        torch.testing.assert_close(y, want_y, **SCAN_TOL)
-                        torch.testing.assert_close(h, want_h, **SCAN_TOL)
-                        err = max(err, float((y - want_y).abs().max()),
-                                  float((h - want_h).abs().max()))
-                        cases += 1
+    for b, s, d, n in itertools.product(SCAN_B, SCAN_S, SCAN_D, SCAN_N):
+        da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed + cases)
+        for start in (None, h0):
+            y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
+            want_y, want_h = selective_scan_plain(da, dbu, cm, start)
+            torch.cuda.synchronize()
+            where = f"B={b} S={s} D={d} N={n} h0={start is not None}"
+            torch.testing.assert_close(y, want_y, **SCAN_TOL, msg=lambda m: f"y at {where}: {m}")
+            if not torch.equal(h, want_h):
+                raise AssertionError(f"h_last not bit-equal to plain at {where}: max_abs_err "
+                                     f"{float((h - want_h).abs().max())}")
+            err = max(err, float((y - want_y).abs().max()))
+            cases += 1
+        del da, dbu, cm, h0, y, h, want_y, want_h
+    torch.cuda.empty_cache()
+    log(f"kernel selective_scan: y within rtol=atol=2e-5 and h_last bit-equal to plain on "
+        f"{cases} cases (B {SCAN_B}, S {SCAN_S}, D {SCAN_D}, N {SCAN_N}, with and without "
+        f"h0; y max_abs_err {err})")
     b, s, d, n = PREFILL_CHUNK
     da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
-    kernel = lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True)  # noqa: E731
-    y, h = kernel()
+    y, h = selective_scan(da, dbu, cm, h0=h0, return_state=True)
     want_y, want_h = selective_scan_plain(da, dbu, cm, h0)
     torch.cuda.synchronize()
     torch.testing.assert_close(y, want_y, **SCAN_TOL)
     torch.testing.assert_close(h, want_h, **SCAN_TOL)
     main_err = max(float((y - want_y).abs().max()), float((h - want_h).abs().max()))
-    ms = time_ms(torch, kernel, samples=25, per_sample=20)
-    plain_ms = time_ms(torch, lambda: selective_scan_plain(da, dbu, cm, h0), samples=5,
-                       per_sample=2)
-    dev_ms = device_ms(torch, kernel, "selective_scan_kernel")
-    # da, dbu, cm and h0 read once; y and h_last written once
-    nbytes = 4 * (2 * b * s * d * n + b * s * n + b * d * n + b * s * d + b * d * n)
-    nops = 4 * b * s * d * n  # h: a multiply and an add; y: a multiply and an add
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = nops / F32_OPS_PER_S * 1e3
+    del da, dbu, cm, h0, y, h, want_y, want_h
+    main = scan_times(torch, PREFILL_CHUNK, seed)
     row = {
         "name": "selective_scan",
         "route": "cuda",
@@ -744,31 +805,55 @@ def check_scan_kernel(torch, seed: int) -> dict:
         "replaces": SCAN_REPLACES,
         "launches": 0,
         "max_abs_err": main_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         # no single PyTorch call computes a linear recurrence with an
         # output contraction
         "library_ms": None,
-        "device_ms": dev_ms,
+        "device_ms": main["device_ms"],
+        "device_ms_cold": main["device_ms_cold"],
+        # the decode step's shape: one token for each of 4 slots, from h0
+        "decode": scan_times(torch, DECODE_STEP, seed),
     }
-    log(f"kernel selective_scan: within rtol=atol=2e-5 of plain on {cases} cases "
-        f"(max_abs_err {err}); {PREFILL_CHUNK} with h0: kernel_ms={ms:.6f} "
-        f"device_ms={dev_ms} plain_ms={plain_ms:.6f} bound_ms={row['bound_ms']:.6f} "
-        f"({row['bound_by']}, {nbytes} bytes) library_ms=null")
-    # the decode step's shape: one token for each of 4 slots, from h0
-    b, s, d, n = DECODE_STEP
-    da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
-    kernel = lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True)  # noqa: E731
-    nbytes = 4 * (2 * b * s * d * n + b * s * n + b * d * n + b * s * d + b * d * n)
-    row["decode"] = {"shape": list(DECODE_STEP), "ms": time_ms(torch, kernel),
-                     "device_ms": device_ms(torch, kernel, "selective_scan_kernel"),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    log(f"kernel selective_scan: {DECODE_STEP} with h0: {json.dumps(row['decode'])}")
-    del da, dbu, cm, h0, y, h, want_y, want_h
-    torch.cuda.empty_cache()
+    log(f"kernel selective_scan: {PREFILL_CHUNK} with h0: kernel_ms={row['ms']:.6f} "
+        f"device_ms={row['device_ms']} plain_ms={row['plain_ms']:.6f} "
+        f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) library_ms=null")
     return row
+
+
+def scan_s_sweep(torch, seed: int) -> dict:
+    """K8's warm device time (ms) at (B, S, 8192, 16) with h0 for B in
+    {1, 4} and S in {1, 2, 4, ..., 128}: run from another checkout, how
+    its body compares over S."""
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    out = {}
+    for b in (1, 4):
+        for s in (1, 2, 4, 8, 16, 32, 64, 128):
+            da, dbu, cm, h0 = scan_inputs(torch, b, s, 8192, 16, seed)
+            out[f"{b},{s}"] = device_ms(
+                torch, lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True),
+                "selective_scan_kernel")
+            del da, dbu, cm, h0
+    torch.cuda.empty_cache()
+    log(f"kernel selective_scan: device_ms at (B, S, 8192, 16) {json.dumps(out)}")
+    return out
+
+
+def scan_ptxas(build_log: str) -> list[str]:
+    """ptxas's spill and register lines for each K8 body in the build
+    log, by kernel and template arguments."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(selective_scan_kernel\w*?)I((?:Li\d+E)+)", line)
+            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            name = f"{m.group(1)}<{args}>" if m else None
+        elif name and ("registers" in line or "spill" in line):
+            out.append(f"ptxas {name}: {line.strip()}")
+    return out
 
 
 def reduced_model_agrees(np, torch, seed: int) -> None:
@@ -809,8 +894,8 @@ def reduced_model_agrees(np, torch, seed: int) -> None:
 
 
 def device_breakdown(prof, tag: str, wall_s: float, top: int = 8) -> float:
-    """Log the device busy share of a profiled window and its top device
-    operations; returns the busy seconds."""
+    """Log the device busy share of a profiled window, its top device
+    operations and K8's, wherever it ranks; returns the busy seconds."""
     device = sorted(
         ((ev.device_time_total, ev.count, ev.key) for ev in prof.key_averages()
          if getattr(ev, "device_time_total", 0.0)),
@@ -819,8 +904,9 @@ def device_breakdown(prof, tag: str, wall_s: float, top: int = 8) -> float:
     busy_s = sum(us for us, _n, _key in device) / 1e6
     log(f"{tag}: device busy {busy_s:.6f} s of {wall_s:.6f} s wall "
         f"(share {busy_s / wall_s:.6f}; torch.profiler, CUDA activity)")
-    for us, n, key in device[:top]:
-        log(f"{tag} device: {us / 1e3:.3f} ms in {n} x {key[:90]}")
+    for rank, (us, n, key) in enumerate(device):
+        if rank < top or "selective_scan_kernel" in key:
+            log(f"{tag} device: {us / 1e3:.3f} ms in {n} x {key[:90]} ({us / n:.3f} us each)")
     return busy_s
 
 
@@ -930,6 +1016,9 @@ def main() -> int:
     ap.add_argument("--tiles-only", action="store_true",
                     help="build, then time the tile kernels K1-K4 at TILE_SHAPES, and stop "
                          "(no equality check, no other phase, no result line)")
+    ap.add_argument("--scan-only", action="store_true",
+                    help="build, print ptxas's report for each K8 body, run phase 6(a) and "
+                         "K8's S sweep, and stop (no other phase, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -962,6 +1051,13 @@ def main() -> int:
         shapes = {name: time_tile_shapes(np, torch, rng, name, entry[name], is_gf, kk)
                   for name, _r, is_gf, kk in KERNELS}
         log(json.dumps({"tile_shapes": shapes}))
+        log(smi)
+        return 0
+    if args.scan_only:
+        for line in scan_ptxas(_build.build_log):
+            log(line)
+        row = check_scan_kernel(torch, args.seed)
+        log(json.dumps({"selective_scan": row, "s_sweep": scan_s_sweep(torch, args.seed)}))
         log(smi)
         return 0
     rows = check_kernels(np, torch, args.seed)

@@ -7,14 +7,18 @@ contraction,
 for da, dbu (B, S, D, N) f32 and cm (B, S, N) f32 -> y (B, S, D) f32,
 from h_{-1} = h0 (zeros by default), optionally returning h_{S-1}.
 
-The kernel is CUDA C++ (``csrc/selective_scan.cu``,
-``selective_scan_kernel``): one thread per (b, d, n) carries h in a
-register over the whole S loop, so the state never goes to device memory.
-It replaces src/repro/kernels/selective_scan.py ``selective_scan``; the
-TPU kernel's block sizes (``bs``, ``bd``) have no counterpart, since the
-CUDA kernel fixes its own launch shape. It is bytes-bound (4 flops per 8
-bytes of da and dbu). The wrapper launches it for a CUDA tensor and runs
-``selective_scan_plain`` for a CPU tensor; the CUDA path never falls back.
+The kernel is CUDA C++ (``csrc/selective_scan.cu``) with two bodies,
+chosen by N in the C entry: ``selective_scan_kernel_vec`` (one thread
+per (b, d, four values of n), float4 loads) for N >= 4, which holds the
+decode step's one token and the prefill chunk, and
+``selective_scan_kernel`` (one thread per (b, d, n)) for N < 4. Both
+carry h in registers over the S loop, so the state never goes to device
+memory. It replaces src/repro/kernels/selective_scan.py
+``selective_scan``; the TPU kernel's block sizes (``bs``, ``bd``) have
+no counterpart, since the CUDA kernel fixes its own launch shape. It is
+bytes-bound (4 flops per 8 bytes of da and dbu). The wrapper launches it
+for a CUDA tensor and runs ``selective_scan_plain`` for a CPU tensor;
+the CUDA path never falls back.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ def selective_scan_plain(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor,
 
 
 def _check(da, dbu, cm, h0) -> None:
+    # on the card, for N >= 4, the kernel reads da, dbu and h0 as float4
+    vec = da.device.type != "cpu" and da.dim() == 4 and da.shape[-1] >= 4
     for name, t in (("da", da), ("dbu", dbu), ("cm", cm), ("h0", h0)):
         if t is None:
             continue
@@ -47,6 +53,8 @@ def _check(da, dbu, cm, h0) -> None:
             raise ValueError(f"{name} must be contiguous")
         if t.device != da.device:
             raise ValueError(f"{name} lies on {t.device}, da on {da.device}")
+        if vec and name != "cm" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the kernel's float4 loads")
     if da.dim() != 4:
         raise ValueError(f"da must be (B, S, D, N), got {tuple(da.shape)}")
     b, s, d, n = da.shape
@@ -67,7 +75,8 @@ def selective_scan(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor, *,
     """K8: y (B, S, D) f32, or (y, h_last (B, D, N)) with ``return_state``.
     ``h0=None`` starts from zeros. Every operand is float32 and
     contiguous (``cm`` split out of a wider projection is a strided view:
-    the caller makes it contiguous)."""
+    the caller makes it contiguous); on the card, for N >= 4, ``da``,
+    ``dbu`` and ``h0`` start on a 16-byte boundary."""
     _check(da, dbu, cm, h0)
     if da.device.type == "cpu":
         y, h_last = selective_scan_plain(da, dbu, cm, h0)
@@ -75,8 +84,8 @@ def selective_scan(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor, *,
     if da.device.type != "cuda":
         raise ValueError(f"operands must lie on a CUDA device or the CPU, not {da.device}")
     b, s, d, n = da.shape
-    y = torch.empty((b, s, d), dtype=torch.float32, device=da.device)
-    h_last = torch.empty((b, d, n), dtype=torch.float32, device=da.device) if return_state else None
+    y = da.new_empty((b, s, d))
+    h_last = da.new_empty((b, d, n)) if return_state else None
     stream = raw_stream(da.device)
     _build.launch("selective_scan", da.data_ptr(), dbu.data_ptr(), cm.data_ptr(),
                   None if h0 is None else h0.data_ptr(), y.data_ptr(),

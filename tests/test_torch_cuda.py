@@ -2,13 +2,16 @@
 its source-group partitioning and every group count) and matrix kernel
 (K5, K6, K7, K7 batched) against its plain torch version, and the codec's
 device path against its CPU path, byte for byte; the selective scan (K8)
-against its plain version at rtol = atol = 2e-5. Every test is marked
+against its plain version at rtol = atol = 2e-5 (y) and bit for bit
+(h_last), over both of its bodies. Every test is marked
 ``cuda`` and skips without a CUDA device (the kernels are CUDA C++ and
 have no CPU mode). Imports nothing of JAX, so it runs where the port
 runs:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import itertools
 
 import pytest
 
@@ -193,24 +196,27 @@ def _scan_inputs(card, b, s, d, n, seed):
 
 @pytest.mark.cuda
 def test_selective_scan_matches_plain(card):
-    """K8 at chip_smoke.py's phase 6(a) shapes: B in {1, 4}, S in {1, 16,
-    128}, D in {256, 8192}, N in {8, 16}, with and without h0; y and
-    h_last."""
+    """K8 over chip_smoke.py's phase 6(a) sweep: B in {1, 4, 32}, S = 1
+    (the float4 body's one-step instance), every remainder of its 4-step
+    load batches and the prefill chunk, D in {200, 1000, 8192} (200 and
+    1000 leave a ragged last block), N from 1 to 32 (the scalar body at 1
+    and 2), with and without h0; y within 2e-5, h_last bit-equal (both
+    sides update h with a multiply, then an add)."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
     _build.reset_launches()
     cases = 0
-    for b in (1, 4):
-        for s in (1, 16, 128):
-            for d in (256, 8192):
-                for n in (8, 16):
-                    da, dbu, cm, h0 = _scan_inputs(card, b, s, d, n, cases)
-                    for start in (None, h0):
-                        y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
-                        want_y, want_h = selective_scan_plain(da, dbu, cm, start)
-                        torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
-                        torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)
-                        cases += 1
+    for b, s, d, n in itertools.product((1, 4, 32), (1, 2, 3, 7, 8, 9, 16, 128),
+                                        (200, 1000, 8192), (1, 2, 4, 8, 16, 32)):
+        da, dbu, cm, h0 = _scan_inputs(card, b, s, d, n, cases)
+        for start in (None, h0):
+            y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
+            want_y, want_h = selective_scan_plain(da, dbu, cm, start)
+            where = (b, s, d, n, start is not None)
+            torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5, msg=str(where))
+            assert torch.equal(h, want_h), where
+            cases += 1
+        del da, dbu, cm, h0, y, h, want_y, want_h
     assert _build.LAUNCHES["selective_scan"] == cases
 
 

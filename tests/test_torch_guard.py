@@ -186,26 +186,28 @@ def _cuda_typed(t):
 
 
 class _FakeLib:
-    """Stands in for the loaded CDLL: every entry returns ``rc`` and each
-    attribute lookup is counted."""
+    """Stands in for the loaded CDLL: every entry returns ``rc`` and
+    records its arguments in ``calls``, and each attribute lookup is
+    counted."""
 
     def __init__(self, rc):
-        self.rc, self.lookups = rc, {}
+        self.rc, self.lookups, self.calls = rc, {}, []
 
     def __getattr__(self, name):
         self.lookups[name] = self.lookups.get(name, 0) + 1
         if name == "ragged_error_string":
             return lambda code: b"fake error"
-        return lambda *args: self.rc
+        return lambda *args: self.calls.append((name, args)) or self.rc
 
 
 @pytest.fixture
 def fake_library(monkeypatch):
     """Load ``_FakeLib(rc)`` in place of the built library, with the
     current stream faked; returns a loader taking ``rc``."""
-    from repro_torch.kernels import _build, ragged_decode
+    from repro_torch.kernels import _build, ragged_decode, selective_scan
 
     monkeypatch.setattr(ragged_decode, "raw_stream", lambda device: 0)
+    monkeypatch.setattr(selective_scan, "raw_stream", lambda device: 0)
     monkeypatch.setattr(_build, "build", lambda: ROOT / "build" / "fake.so")
     monkeypatch.setattr(_build, "_lib", None)
     monkeypatch.setattr(_build, "_fns", None)
@@ -306,3 +308,103 @@ def test_tile_launch_checks_raise(what, fake_library):
         with pytest.raises(ValueError, match=pattern):
             call()
     assert all(n == 0 for n in _build.LAUNCHES.values()) and not lib.lookups
+
+
+# -- K8's launch path, driven without a card ---------------------------------
+
+DECODE_STEP = (4, 1, 8192, 16)  # (B, S, D, N): the launcher's decode call at batch 4
+
+
+def _scan_operands(b, s, d, n, offset=None):
+    """CUDA-typed da, dbu, cm, h0; ``offset`` names one of da, dbu, h0
+    to make a view that starts one float past a 16-byte boundary."""
+    ops = {"da": (b, s, d, n), "dbu": (b, s, d, n), "cm": (b, s, n), "h0": (b, d, n)}
+    out = {}
+    for name, shape in ops.items():
+        base = torch.zeros(int(np.prod(shape)) + 1, dtype=torch.float32)
+        flat = base[1:] if name == offset else base[:-1]
+        out[name] = _cuda_typed(flat.view(shape))
+    return out
+
+
+@pytest.mark.parametrize("what", ["da", "dbu", "h0"])
+def test_scan_misaligned_operand_raises(what, fake_library):
+    """For N >= 4 the kernel reads da, dbu and h0 as float4: a view one
+    float past a 16-byte boundary raises ValueError before any launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    lib = fake_library(0)
+    _build.reset_launches()
+    t = _scan_operands(2, 1, 8, 16, offset=what)
+    assert t[what].data_ptr() % 16 == 4 and t[what].is_contiguous()
+    with pytest.raises(ValueError, match=f"{what} must be 16-byte aligned"):
+        selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"], return_state=True)
+    assert all(n == 0 for n in _build.LAUNCHES.values()) and not lib.calls
+
+
+def test_scan_small_n_takes_any_alignment(fake_library):
+    """N < 4 runs the scalar body: a view one float off a 16-byte
+    boundary launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    lib = fake_library(0)
+    _build.reset_launches()
+    t = _scan_operands(2, 3, 8, 2, offset="h0")
+    selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"])
+    assert _build.LAUNCHES["selective_scan"] == 1 and len(lib.calls) == 1
+
+
+def test_scan_refused_launch_raises_and_counts_nothing(fake_library):
+    """A non-zero return of the ``selective_scan`` entry raises, naming
+    it, and leaves the launch count where it was."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    fake_library(700)
+    _build.reset_launches()
+    t = _scan_operands(*DECODE_STEP)
+    with pytest.raises(RuntimeError, match="selective_scan: CUDA error 700 \\(fake error\\)"):
+        selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"], return_state=True)
+    assert all(n == 0 for n in _build.LAUNCHES.values())
+
+
+def test_scan_entry_is_resolved_once(fake_library):
+    """Many K8 calls look the entry up once, when the library loads."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    lib = fake_library(0)
+    _build.reset_launches()
+    t = _scan_operands(2, 1, 8, 16)
+    for _ in range(5):
+        selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"], return_state=True)
+    assert _build.LAUNCHES["selective_scan"] == 5 and len(lib.calls) == 5
+    assert lib.lookups["selective_scan"] == 1, lib.lookups
+
+
+@pytest.mark.parametrize("with_h0", [True, False])
+def test_scan_decode_launch_arguments(with_h0, fake_library):
+    """At the decode shape the wrapper passes the C entry its arguments
+    in the order of ``_build.ENTRIES["selective_scan"]``: the six
+    pointers (h0 and h_last null when absent), then B, S, D, N and the
+    stream; y and h_last are the tensors it returns."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    lib = fake_library(0)
+    t = _scan_operands(*DECODE_STEP)
+    h0 = t["h0"] if with_h0 else None
+    y, h_last = selective_scan(t["da"], t["dbu"], t["cm"], h0=h0, return_state=True)
+    y_only = selective_scan(t["da"], t["dbu"], t["cm"], h0=h0)
+    (name, args), (_, args_y) = lib.calls
+    assert name == "selective_scan" and len(args) == len(_build.ENTRIES[name])
+    b, s, d, n = DECODE_STEP
+    assert y.shape == (b, s, d) and h_last.shape == (b, d, n)
+    assert y.dtype == h_last.dtype == torch.float32
+    assert args == (t["da"].data_ptr(), t["dbu"].data_ptr(), t["cm"].data_ptr(),
+                    h0.data_ptr() if with_h0 else None, y.data_ptr(), h_last.data_ptr(),
+                    b, s, d, n, 0)
+    assert args_y[5] is None and args_y[4] == y_only.data_ptr()
+

@@ -28,7 +28,9 @@ from repro_torch.kernels.selective_scan import selective_scan  # noqa: E402
 ssk = importlib.import_module("repro.kernels.selective_scan")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-SWEEP = list(itertools.product((8, 32, 64), (8, 16), (4, 16), (0, 1)))  # s, d, n, seed
+# s, d, n, seed: the decode step's few tokens (S in {1, 2, 3}) and N from
+# a scalar to a warp's lanes, at D a multiple of the Pallas kernel's bd
+SWEEP = list(itertools.product((1, 2, 3, 8, 32, 64), (8, 16), (1, 4, 16, 32), (0, 1)))
 
 
 def _inputs(b, s, d, n, seed):
@@ -64,10 +66,14 @@ def test_plain_matches_pallas_kernel(s, d, n, seed, jax_sweep):
 
 
 @pytest.mark.parametrize("b,s,d,n", [(1, 16, 32, 8), (2, 10, 16, 16), (4, 1, 64, 16),
-                                     (3, 7, 8, 4)])
+                                     (3, 7, 8, 4), (32, 1, 12, 1), (32, 2, 12, 2),
+                                     (32, 1, 12, 32), (32, 2, 12, 32), (4, 1, 12, 16),
+                                     (4, 2, 12, 16), (1, 2, 12, 1)])
 def test_carry_matches_chunk_scan(b, s, d, n):
     """h0 in, h_last out: the reference's chunk body, ``_chunk_scan``
-    then ``einsum("bcdn,bcn->bcd")`` (models/mamba.py:174-175)."""
+    then ``einsum("bcdn,bcn->bcd")`` (models/mamba.py:174-175); the
+    decode step's shapes too (S in {1, 2}, a D of 12 that fills no block
+    of the CUDA bodies, N from 1 to 32, B up to 32)."""
     da, dbu, cm = _inputs(b, s, d, n, b * 100 + s)
     h0 = np.random.default_rng(s).standard_normal((b, d, n)).astype(np.float32)
     h_all, h_last = jmamba._chunk_scan(jnp.asarray(da), jnp.asarray(dbu), jnp.asarray(h0))

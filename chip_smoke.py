@@ -68,17 +68,36 @@ Phases, in order; any failure raises and exits non-zero:
    short profiled window of the same loop for its device busy share:
    logits finite, every request finished, every token in the vocabulary,
    K8 launched on both paths.
+7. the storage paths: (a) the fault-injection scenario engine's
+   canonical correlated surge (``correlated_surge_setup``, CORE (9, 6,
+   3), 200 requests) with fixed and paced repair, and the gray-failure
+   trace of seed 0 (crash + corruption + fail-slow), each on the card
+   and on the CPU with autotune off and modeled decode billing:
+   ``deterministic_fingerprint`` equal, no block lost, and the degraded
+   GETs' tile kernels K1 and K2 launched on the card; (b) the surge at
+   the benchmark's full setting, CORE (14, 12, 5) and 600 requests,
+   fixed and paced on the card (fingerprints equal to the CPU's): serve
+   wall time, simulated p99 since the failure (paced below fixed),
+   MTTR, pacing updates, blocks lost (0) and the tile launches of each
+   run; (c) the CORE checkpoint layer: a make_state-sized tree's group
+   matrices equal on card and CPU, then falcon-mamba-7b's state_dict at
+   full width cut to 2 of its 64 layers, saved on the card at (14, 12,
+   5) with 64 KiB blocks over 100 nodes, two nodes of group 0 failed,
+   restored bit-equal, repaired with every rebuilt block's digest
+   verified; save, restore and repair wall times, bytes fetched, and
+   one group's encode under the profiler.
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
 check, no result line). ``--scan-only`` builds, prints ptxas's register
 and spill report for each K8 body, runs phase 6(a), times K8 at S in
-{1, 2, 4, ..., 128} for B in {1, 4}, and stops (no result line). The
+{1, 2, 4, ..., 128} for B in {1, 4}, and stops (no result line).
+``--storage-only`` builds, runs phase 7 and stops (no result line). The
 script imports ``repro_torch`` from the ``src/`` beside it, so a copy of
 it placed in another checkout times that checkout's kernels.
 
 The last three lines are the kernels' JSON record (each kernel's
-``launches`` from the path that runs it: phase 4 for K1 and K2, phases 4
-and 5 for K3 and K4, the codec
+``launches`` from the paths that run it: phases 4, 5 and 7 for K1-K4
+(``launches_by_phase``), the codec
 path for K5 and K7, phase 5 for K6 and K7 batched, phase 6(c)'s prefill
 and serve for K8), the card's name and power limit again, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -1010,6 +1029,275 @@ def full_width_model(np, torch, seed: int) -> dict[str, int]:
     return {"prefill": prefill_k8, "serve": serve_k8}
 
 
+TILE_NAMES = tuple(name for name, _r, _gf, _k in KERNELS)
+
+
+def _scenario_gateway(np, code, device: str, *, num_nodes: int, q: int, num_objects: int,
+                      seed: int, **cfg_kw):
+    """An ObjectGateway loaded as tests/test_scenario.py's ``_gateway``
+    builds it, on ``device`` with autotune off (tile counts, and so the
+    modeled bill, must not depend on the card)."""
+    from repro_torch.gateway import GatewayConfig, ObjectGateway
+    from repro_torch.storage.netmodel import ClusterProfile
+
+    cfg = GatewayConfig(device=device, autotune=False, **cfg_kw)
+    gw = ObjectGateway(code, ClusterProfile.network_critical(), num_nodes, cfg)
+    rng = np.random.default_rng(seed)
+    gw.load_objects(rng.integers(0, 256, (num_objects, code.k, q), dtype=np.uint8))
+    return gw
+
+
+def _surge_run(np, code, num_requests: int, pacing: bool, device: str):
+    """correlated_surge_setup's scenario on ``device``: (result, this
+    run's tile-kernel launches, serve wall s, the setup)."""
+    from repro_torch.kernels import _build
+    from repro_torch.scenario import correlated_surge_setup, run_scenario
+
+    setup = correlated_surge_setup(code, num_requests=num_requests)
+    gw = _scenario_gateway(np, code, device, num_nodes=setup["num_nodes"],
+                           q=setup["block_bytes"], num_objects=setup["num_objects"],
+                           seed=setup["seed"], repair_pacing=pacing, **setup["gateway_kwargs"])
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_scenario(gw, setup["trace"], setup["workload"])
+    wall = time.perf_counter() - t0
+    launches = {name: _build.LAUNCHES[name] for name in TILE_NAMES}
+    return res, launches, wall, setup
+
+
+def _gray_run(np, seed: int, device: str):
+    """The gray-failure trace of tests/test_integrity.py (crash +
+    corruption + fail-slow, bounded at n - k) on its gateway."""
+    from repro_torch.core.product_code import CoreCode
+    from repro_torch.gateway import WorkloadConfig
+    from repro_torch.kernels import _build
+    from repro_torch.scenario import ScenarioConfig, generate_scenario, run_scenario
+
+    code = CoreCode(9, 6, 3)
+    trace = generate_scenario(ScenarioConfig(
+        duration=0.5, num_nodes=60, nodes_per_rack=3, max_concurrent_failures=code.n - code.k,
+        crash_rate=6.0, mean_downtime=0.08, transient_fraction=0.5, corruption_rate=8.0,
+        corruption_blocks=2, slow_rate=6.0, slow_factor=0.2, mean_slow_time=0.1, seed=seed,
+    ))
+    gw = _scenario_gateway(
+        np, code, device, num_nodes=60, q=2048, num_objects=12, seed=9,
+        batch_window=0.01, cache_bytes=4 * 1024 * 1024, repair_on_failure=True,
+        repair_delay=0.03, record_payloads=True, scrub_interval=0.1, decode_cost=0.002,
+    )
+    wl = WorkloadConfig(num_objects=12, num_requests=100, arrival_rate=300.0, seed=seed)
+    _build.reset_launches()
+    res = run_scenario(gw, trace, wl)
+    return res, {name: _build.LAUNCHES[name] for name in TILE_NAMES}
+
+
+def scenario_card_vs_cpu(np) -> dict[str, int]:
+    """Phase 7(a): the canonical surge at (9, 6, 3), 200 requests, fixed
+    and paced, and the gray trace of seed 0, each on the card and on the
+    CPU: deterministic fingerprints equal, no block lost. Returns the
+    card runs' tile-kernel launches, summed."""
+    from repro_torch.core.product_code import CoreCode
+    from repro_torch.scenario import deterministic_fingerprint
+
+    total = dict.fromkeys(TILE_NAMES, 0)
+    runs = {f"surge[(9,6,3), {'paced' if p else 'fixed'}]":
+            (lambda dev, p=p: _surge_run(np, CoreCode(9, 6, 3), 200, p, dev)[:2])
+            for p in (False, True)}
+    runs["gray[seed 0]"] = lambda dev: _gray_run(np, 0, dev)
+    for label, run in runs.items():
+        card, launches = run("cuda")
+        cpu, _ = run("cpu")
+        fp_card, fp_cpu = deterministic_fingerprint(card), deterministic_fingerprint(cpu)
+        log(f"scenario {label}: card fingerprint {fp_card}, CPU {fp_cpu}; "
+            f"summary {json.dumps(card.summary())}; tile launches {launches}")
+        if fp_card != fp_cpu:
+            raise AssertionError(f"scenario {label}: card and CPU fingerprints differ")
+        if card.blocks_lost or card.durability["unreadable_objects"]:
+            raise AssertionError(f"scenario {label}: durability {card.durability}")
+        for name in TILE_NAMES:
+            total[name] += launches[name]
+    for name in ("ragged_gf256_tiles", "ragged_xor_tiles"):
+        if total[name] <= 0:
+            raise AssertionError(f"scenario runs on the card never launched {name}")
+    return total
+
+
+def scenario_full_setting(np) -> dict[str, int]:
+    """Phase 7(b): correlated_surge_setup at the benchmark's full
+    setting, CORE (14, 12, 5) and 600 requests, fixed and paced on the
+    card (and once more on the CPU, whose fingerprints must agree):
+    every run loses no block and the paced run's simulated p99 since the
+    failure is below the fixed run's. Returns the paced run's tile
+    launches (the counts set to 0 just before it)."""
+    from repro_torch.core.product_code import CoreCode
+    from repro_torch.scenario import deterministic_fingerprint
+
+    code = CoreCode(14, 12, 5)
+    out = {}
+    for pacing in (False, True):
+        tag = "paced" if pacing else "fixed"
+        res, launches, wall, setup = _surge_run(np, code, 600, pacing, "cuda")
+        cpu = _surge_run(np, code, 600, pacing, "cpu")[0]
+        fail_at, surge_end = setup["fail_at"], setup["surge_end"]
+        p99 = res.p99_since(fail_at)
+        window = res.p99_window(fail_at, surge_end)
+        log(f"scenario surge[(14,12,5), 600 requests, {tag}]: serve wall {wall:.6f} s; "
+            f"simulated p99 since failure {p99 * 1e3:.6f} ms, p99 of arrivals in "
+            f"[{fail_at}, {surge_end}) {window * 1e3:.6f} ms; MTTR mean "
+            f"{res.mttr_mean:.6f} s; pacing updates {len(res.report.pacing)}; blocks_lost "
+            f"{res.blocks_lost}; tile launches {launches}; summary {json.dumps(res.summary())}")
+        if deterministic_fingerprint(res) != deterministic_fingerprint(cpu):
+            raise AssertionError(f"surge (14,12,5) {tag}: card and CPU fingerprints differ")
+        if res.blocks_lost or res.durability["missing_blocks"]:
+            raise AssertionError(f"surge (14,12,5) {tag}: durability {res.durability}")
+        out[tag] = (p99, launches)
+    if not out["paced"][0] < out["fixed"][0]:
+        raise AssertionError(f"paced p99 {out['paced'][0]} not below fixed {out['fixed'][0]}")
+    return out["paced"][1]
+
+
+def _tree_bytes(torch, leaf) -> bytes:
+    return leaf.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes()
+
+
+def checkpoint_card_vs_cpu(np, torch, seed: int) -> None:
+    """Phase 7(c), first part: on a tree of tests/test_checkpoint.py's
+    make_state size, the group matrices the card's codec stores equal
+    the CPU's byte for byte."""
+    from repro_torch.checkpoint import CoreCheckpointer
+    from repro_torch.core.product_code import CoreCode
+    from repro_torch.storage.blockstore import BlockStore
+
+    rng = np.random.default_rng(seed)
+    tree = {
+        "params": {"w1": rng.normal(size=(64, 128)).astype(np.float32),
+                   "b1": rng.normal(size=(128,)).astype(np.float32),
+                   "embed": torch.from_numpy(rng.normal(size=(1000, 64))).to(torch.bfloat16)},
+        "opt": {"mu": rng.normal(size=(64, 128)).astype(np.float32),
+                "nu": rng.normal(size=(64, 128)).astype(np.float32)},
+        "step": np.asarray(123, dtype=np.int64),
+    }
+    stores = {}
+    for dev in ("cuda", "cpu"):
+        stores[dev] = BlockStore(num_nodes=200)
+        CoreCheckpointer(stores[dev], CoreCode(9, 6, 3), block_size=1 << 12,
+                         device=dev).save(1, tree)
+    card, cpu = stores["cuda"], stores["cpu"]
+    same = card.checksums == cpu.checksums and all(
+        np.array_equal(blk, cpu.blocks[key]) for key, blk in card.blocks.items())
+    if not same or card.placement != cpu.placement:
+        raise AssertionError("checkpoint: card and CPU group matrices differ")
+    log(f"checkpoint make_state tree: {len(card.blocks)} blocks identical on card and CPU")
+
+
+def checkpoint_full_width(np, torch, seed: int) -> None:
+    """Phase 7(c): falcon-mamba-7b's state_dict at full width, cut to 2
+    of its 64 layers, CORE-checkpointed on the card at (14, 12, 5) with
+    64 KiB blocks over 100 nodes; two nodes holding blocks of group 0
+    fail; restore is bit-equal; repair recovers every block and each
+    rebuilt block matches its digest."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CoreCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.product_code import CoreCode
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_model
+    from repro_torch.storage.blockstore import BlockStore
+
+    full = get_config("falcon_mamba_7b")
+    cfg = dataclasses.replace(full, num_layers=2)
+    model = get_model(cfg).init(cfg, seed, device="cuda")
+    state = model.state_dict()
+    n_bytes = sum(t.numel() * t.element_size() for t in state.values())
+    log(f"checkpoint state: falcon-mamba-7b d_model {cfg.d_model}, d_inner {cfg.d_inner}, "
+        f"vocab {cfg.vocab_size}, {cfg.num_layers} of {full.num_layers} layers: "
+        f"{len(state)} tensors, {n_bytes} bytes "
+        f"({sorted({str(t.dtype) for t in state.values()})})")
+    store = BlockStore(num_nodes=100)
+    code = CoreCode(14, 12, 5)
+    ckpt = CoreCheckpointer(store, code, block_size=1 << 16, device="cuda")
+    _build.reset_launches()
+    man = ckpt.save(1, state)
+    groups = len(man.group_ids)
+    log(f"checkpoint save: {man.total_bytes} bytes in {groups} groups of {code} x 65536-byte "
+        f"blocks, {len(store.blocks)} blocks stored, wall {man.save_seconds:.6f} s")
+
+    # one group's encode on the card, profiled: the codec's CUDA work per group
+    from repro_torch.checkpoint import partition
+
+    group_bytes = code.k * code.t << 16
+    head = model.embed.detach().reshape(-1)[: group_bytes // model.embed.element_size()]
+    one = partition.stream_to_objects(_tree_bytes(torch, head), 1 << 16, code.k, code.t)[0][0]
+    ckpt.codec.encode(one)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ckpt.codec.encode(one)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    kernels = [(ev.device_time_total, ev.count, ev.key) for ev in prof.key_averages()
+               if getattr(ev, "device_time_total", 0.0)]
+    log(f"checkpoint encode of one group (5 x 12 x 65536 bytes): wall {enc_s * 1e3:.6f} ms, "
+        f"{sum(n for _us, n, _k in kernels)} CUDA activities, device "
+        f"{sum(us for us, _n, _k in kernels) / 1e3:.6f} ms (torch.profiler)")
+    for us, n, key in sorted(kernels, reverse=True)[:4]:
+        log(f"checkpoint encode device: {us / 1e3:.3f} ms in {n} x {key[:90]}")
+    del prof
+
+    gid = man.group_ids[0]
+    victims = [store.node_of((gid, 0, 0)), store.node_of((gid, 1, 3))]
+    store.fail_nodes(victims)
+    hit = sum(1 for key, node in store.placement.items() if node in victims)
+    t0 = time.perf_counter()
+    restored, rep = ckpt.restore(1)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bad = [k for k, v in state.items()
+           if restored[k].dtype != v.dtype or tuple(restored[k].shape) != tuple(v.shape)
+           or _tree_bytes(torch, restored[k]) != _tree_bytes(torch, v)]
+    log(f"checkpoint restore with nodes {victims} down ({hit} blocks lost): wall "
+        f"{restore_s:.6f} s, {rep.blocks_fetched} blocks / {rep.bytes_fetched} bytes fetched, "
+        f"compute {rep.compute_time:.6f} s; {len(state) - len(bad)} of {len(state)} tensors "
+        f"bit-equal")
+    if bad or list(restored) != list(state):
+        raise AssertionError(f"checkpoint restore differs in {bad[:5]}")
+    del restored
+    t0 = time.perf_counter()
+    fixed = ckpt.repair(1)
+    torch.cuda.synchronize()
+    repair_s = time.perf_counter() - t0
+    unverified = [key for key in store.blocks if not store.verify(key)]
+    lost = sum(int(store.failure_matrix(g, code.rows, code.n).sum()) for g in man.group_ids)
+    launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+    log(f"checkpoint repair: wall {repair_s:.6f} s, {fixed.blocks_repaired} blocks repaired "
+        f"from {fixed.blocks_fetched} fetched ({fixed.bytes_fetched} bytes), recovered "
+        f"{fixed.recovered}; digests verified {len(store.blocks) - len(unverified)} of "
+        f"{len(store.blocks)}; hand-written kernel launches over save, restore and repair "
+        f"{launches or 0} (the codec is plain torch)")
+    if not fixed.recovered or unverified or lost or fixed.blocks_repaired != hit:
+        raise AssertionError(f"checkpoint repair: recovered {fixed.recovered}, "
+                             f"{len(unverified)} bad digests, {lost} still missing")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def storage_paths(np, torch, seed: int) -> dict[str, dict[str, int]]:
+    """Phase 7: the scenario engine and the CORE checkpoint layer on the
+    card. Returns the tile launches of 7(a) and 7(b)."""
+    t0 = time.perf_counter()
+    card_vs_cpu = scenario_card_vs_cpu(np)
+    log(f"phase 7(a) done in {time.perf_counter() - t0:.1f} s")
+    full = scenario_full_setting(np)
+    log(f"phase 7(b) done in {time.perf_counter() - t0:.1f} s")
+    checkpoint_card_vs_cpu(np, torch, seed)
+    checkpoint_full_width(np, torch, seed)
+    log(f"phase 7(c) done in {time.perf_counter() - t0:.1f} s")
+    return {"7a": card_vs_cpu, "7b": full}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1019,6 +1307,9 @@ def main() -> int:
     ap.add_argument("--scan-only", action="store_true",
                     help="build, print ptxas's report for each K8 body, run phase 6(a) and "
                          "K8's S sweep, and stop (no other phase, no result line)")
+    ap.add_argument("--storage-only", action="store_true",
+                    help="build, run phase 7 (the scenario engine and the CORE checkpoint "
+                         "layer on the card), and stop (no other phase, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1060,6 +1351,11 @@ def main() -> int:
         log(json.dumps({"selective_scan": row, "s_sweep": scan_s_sweep(torch, args.seed)}))
         log(smi)
         return 0
+    if args.storage_only:
+        storage_paths(np, torch, args.seed)
+        log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        return 0
     rows = check_kernels(np, torch, args.seed)
     matrix_rows = check_matrix_kernels(np, torch, args.seed)
     codec = codec_path(np, torch, args.seed)
@@ -1080,16 +1376,22 @@ def main() -> int:
     scan_launches = full_width_model(np, torch, args.seed)
     scan_row["launches"] = scan_launches["prefill"] + scan_launches["serve"]
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    storage = storage_paths(np, torch, args.seed)
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the path that runs it
     source = {"gf256_matmul_planes": codec, "xor_parity": codec,
               "gf256_matmul_planes_batched": bucketed, "xor_parity_batched": bucketed}
-    for row in rows + matrix_rows:
-        row["launches"] = source.get(row["name"], ragged)[row["name"]]
-    # the encode tiles run on both serves' PUTs: their count is the sum
+    for row in matrix_rows:
+        row["launches"] = source[row["name"]][row["name"]]
+    # the tile kernels run on the serves of phases 4 and 5 and on the
+    # scenario runs of phase 7: their count is the sum
     for row in rows:
-        if "encode" in row["name"]:
-            row["launches_by_phase"] = {"4": ragged[row["name"]], "5": bucketed[row["name"]]}
-            row["launches"] += bucketed[row["name"]]
+        name = row["name"]
+        row["launches_by_phase"] = {
+            "4": ragged[name], "5": bucketed[name],
+            "7": storage["7a"][name] + storage["7b"][name],
+        }
+        row["launches"] = sum(row["launches_by_phase"].values())
     log(json.dumps({"kernels": rows + matrix_rows + [scan_row]}))
     log(smi)
     print(json.dumps({

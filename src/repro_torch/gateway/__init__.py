@@ -30,7 +30,7 @@
 # crowd it. Per-tenant latency, rejection, starvation, and
 # deadline-miss accounting surface in GatewayReport and NetSimulator.
 #
-# Fault scenarios + closed-loop repair (see repro.scenario for the
+# Fault scenarios + closed-loop repair (see repro_torch.scenario for the
 # trace DSL): serve() consumes node-level cluster events mid-run —
 # FailureEvent (transient crash), NodeRecoverEvent (blocks return
 # intact; negative cache entries purged), CapacityLossEvent (blocks

@@ -77,7 +77,7 @@ per device, launch signatures bounded — two chunk rungs per kind on the
 ragged path, a fixed batch ladder on the bucketed one —
 GatewayReport.jit_cache_entries) and scaled by the cluster profile.
 
-Fault scenarios (repro.scenario): ``serve`` consumes node-level cluster
+Fault scenarios (repro_torch.scenario): ``serve`` consumes node-level cluster
 events mid-run — transient crashes (FailureEvent), recoveries
 (NodeRecoverEvent: blocks return intact, negative cache entries purged)
 and capacity losses (CapacityLossEvent: blocks destroyed, only repair

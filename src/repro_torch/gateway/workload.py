@@ -40,7 +40,7 @@ class Request:
 class FailureEvent:
     """Node crash: the node goes dark but its disks survive — a matching
     ``NodeRecoverEvent`` brings the blocks back intact (reboot, network
-    partition). The scenario engine (repro.scenario) composes these with
+    partition). The scenario engine (repro_torch.scenario) composes these with
     recoveries, capacity losses and load surges into full fault traces."""
 
     time: float

@@ -23,6 +23,7 @@ def test_every_module_imports_without_jax_or_repro():
         """
         import importlib, pkgutil, sys
         sys.modules["jax"] = None  # any `import jax` now raises
+        sys.modules["ml_dtypes"] = None  # a JAX dependency: blocked as well
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
@@ -40,6 +41,11 @@ def test_every_module_imports_without_jax_or_repro():
                    "repro_torch.serve.kvcache", "repro_torch.serve.serve_step",
                    "repro_torch.launch.serve"}
         assert slice_3 <= set(names), slice_3 - set(names)
+        slice_6 = {"repro_torch.scenario", "repro_torch.scenario.trace",
+                   "repro_torch.scenario.engine", "repro_torch.core.analysis",
+                   "repro_torch.checkpoint", "repro_torch.checkpoint.partition",
+                   "repro_torch.checkpoint.core_ckpt"}
+        assert slice_6 <= set(names), slice_6 - set(names)
         print(len(names))
         """
     )
@@ -49,11 +55,11 @@ def test_every_module_imports_without_jax_or_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 55  # every subpackage was walked
+    assert int(proc.stdout.strip()) >= 62  # every subpackage was walked
 
 
 def test_no_jax_or_repro_import_lines():
-    pattern = re.compile(r"^\s*(import|from) (jax|repro)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from) (jax|repro|ml_dtypes)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     hits = [
@@ -65,6 +71,7 @@ def test_no_jax_or_repro_import_lines():
 
 
 def _entry_points():
+    from repro_torch.checkpoint import CoreCheckpointer
     from repro_torch.core.product_code import CoreCode, CoreCodec
     from repro_torch.gateway import DecodeCoalescer, GatewayConfig, ObjectGateway
     from repro_torch.kernels.backend import resolve_device
@@ -86,6 +93,7 @@ def _entry_points():
         "fixer": lambda: BlockFixer(
             BlockStore(num_nodes=60), code, ClusterProfile.network_critical()
         ),
+        "checkpointer": lambda: CoreCheckpointer(BlockStore(num_nodes=60), code),
         "gateway": lambda: ObjectGateway(
             code, ClusterProfile.network_critical(), 60, GatewayConfig()
         ),
@@ -97,8 +105,8 @@ def _entry_points():
 
 
 @pytest.mark.parametrize(
-    "name", ["resolve_device", "resolve_cuda", "codec", "coalescer", "fixer", "gateway",
-             "mamba_lm", "init_lm", "init_cache", "launch_serve"]
+    "name", ["resolve_device", "resolve_cuda", "codec", "coalescer", "fixer", "checkpointer",
+             "gateway", "mamba_lm", "init_lm", "init_cache", "launch_serve"]
 )
 def test_default_device_raises_without_cuda(name, monkeypatch):
     """No silent CPU fallback: the default device is the card."""

@@ -85,13 +85,31 @@ Phases, in order; any failure raises and exits non-zero:
    5) with 64 KiB blocks over 100 nodes, two nodes of group 0 failed,
    restored bit-equal, repaired with every rebuilt block's digest
    verified; save, restore and repair wall times, bytes fetched, and
-   one group's encode under the profiler.
+   one group's encode under the profiler;
+8. the training path (TF32 is off for every phase after the build): (a) one
+   ``make_train_step`` of the reduced falcon-mamba (2 layers) in float32
+   on the card against the CPU from the same weights (loss within rtol
+   = atol = 1e-4, each gradient leaf within 1e-3 of its max |CPU|, the
+   parameters after the update within 1e-5, K8 not launched), the
+   training scan ``_chunk_scan`` against K8's forward at (1, 128, 8192,
+   16) (y and h_last within 2e-5), and K8 refusing an operand that
+   requires grad; (b) falcon-mamba-7b at full width cut to 2 of its 64
+   layers, bf16 weights from ``--seed``: ``Trainer.run`` for 6 steps at
+   the launcher's defaults (global batch 8, seq 256) with a CORE
+   checkpoint (14, 12, 5) of the whole train state at step 6 over 100
+   nodes; each step's wall, loss and grad norm, the median step wall,
+   tokens/s and peak memory; step 7 from the in-memory state under the
+   profiler (busy share, top device ops); two nodes of group 0 failed,
+   ``restore_latest`` bit-equal to the saved state, ``ckpt.repair``
+   recovered, and steps 7-8 resumed from the restored state (step-7
+   loss within 1e-3 relative of the in-memory one); K8 never launched.
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
 check, no result line). ``--scan-only`` builds, prints ptxas's register
 and spill report for each K8 body, runs phase 6(a), times K8 at S in
 {1, 2, 4, ..., 128} for B in {1, 4}, and stops (no result line).
-``--storage-only`` builds, runs phase 7 and stops (no result line). The
+``--storage-only`` builds, runs phase 7 and stops (no result line).
+``--train-only`` builds, runs phase 8 and stops (no result line). The
 script imports ``repro_torch`` from the ``src/`` beside it, so a copy of
 it placed in another checkout times that checkout's kernels.
 
@@ -1298,6 +1316,231 @@ def storage_paths(np, torch, seed: int) -> dict[str, dict[str, int]]:
     return {"7a": card_vs_cpu, "7b": full}
 
 
+def _bits_equal(torch, a, b) -> bool:
+    """Same dtype, shape and bytes (NaN and -0.0 compared as bits)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.detach().contiguous().reshape(-1).view(torch.uint8),
+                       b.detach().to(a.device).contiguous().reshape(-1).view(torch.uint8))
+
+
+def train_card_vs_cpu(np, torch, seed: int) -> None:
+    """Phase 8(a): the training path against the CPU and against K8. One
+    ``make_train_step`` of the reduced falcon-mamba (2 layers) in float32
+    (TF32 off) from the same weights on the card and on the CPU (carried
+    to the card through ``models.convert`` both ways): loss within
+    rtol = atol = 1e-4, each gradient leaf within 1e-3 of its max
+    |CPU|, the parameters after the update within 1e-5 (a tenth of the
+    step's learning rate, 1e-4); K8 not launched by it. Then the
+    training scan ``_chunk_scan`` (and its output einsum) on the card
+    against K8's forward at the prefill chunk (1, 128, 8192, 16): y and
+    h_last within rtol = atol = 2e-5. Then K8 given an operand that
+    requires grad raises, launching nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models import convert
+    from repro_torch.models.mamba import _chunk_scan
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    cfg = get_config("falcon_mamba_7b").reduced(num_layers=2)
+    api = get_model(cfg)
+    oc = opt.OptConfig(lr=1e-4, warmup_steps=1)
+    cpu = api.init(cfg, seed, device="cpu", dtype=torch.float32).requires_grad_(True)
+    # the card's copy goes through models/convert.py both ways
+    models = {"cpu": cpu, "cuda": convert.mamba_from_jax(convert.to_reference_tree(cpu), cfg,
+                                                         device="cuda", trainable=True)}
+    batch = SyntheticPipeline(cfg, 32, 2, seed).batch_at(0)
+    step = ts.make_train_step(cfg, api, SINGLE, oc)
+    out = {}
+    _build.reset_launches()
+    for dev, model in models.items():
+        loss = api.loss(model, batch, cfg, SINGLE)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        state = ts.TrainState(model, opt.init_opt_state(convert.stacked_tree(model), oc),
+                              torch.zeros((), dtype=torch.int32, device=model.device))
+        state, metrics = step(state, batch)
+        out[dev] = (float(metrics["loss"]), [g.cpu() for g in grads],
+                    [p.detach().cpu() for p in state.params.parameters()])
+    k8 = _build.LAUNCHES["selective_scan"]
+    loss_err = abs(out["cuda"][0] - out["cpu"][0])
+    grad_err = max(float((g - w).abs().max()) / float(w.abs().max())
+                   for g, w in zip(out["cuda"][1], out["cpu"][1]))
+    param_err = max(float((p - w).abs().max()) for p, w in zip(out["cuda"][2], out["cpu"][2]))
+    log(f"phase 8(a) reduced falcon-mamba f32 train step, card vs CPU: loss {out['cuda'][0]} "
+        f"vs {out['cpu'][0]} (|diff| {loss_err}, tolerance 1e-4 + 1e-4 rel); gradient leaves "
+        f"max |diff| / max |CPU| {grad_err} (tolerance 1e-3); params after the update max "
+        f"|diff| {param_err} (tolerance 1e-5); K8 launches {k8}")
+    if loss_err > 1e-4 + 1e-4 * abs(out["cpu"][0]) or grad_err > 1e-3 or param_err > 1e-5:
+        raise AssertionError("phase 8(a): the card's train step differs from the CPU's")
+    if k8:
+        raise AssertionError(f"phase 8(a): the train step launched K8 {k8} times")
+    del models, cpu, state
+
+    da, dbu, cm, h0 = scan_inputs(torch, 1, 128, 8192, 16, seed)
+    with torch.no_grad():
+        h_all, h_last = _chunk_scan(da, dbu, h0)
+        y = torch.einsum("bcdn,bcn->bcd", h_all, cm)
+        k8_y, k8_h = selective_scan(da, dbu, cm, h0=h0, return_state=True)
+    torch.cuda.synchronize()
+    y_err = float((y - k8_y).abs().max())
+    h_err = float((h_last - k8_h).abs().max())
+    log(f"phase 8(a) _chunk_scan + einsum vs K8 at (1, 128, 8192, 16): y max_abs_err {y_err}, "
+        f"h_last max_abs_err {h_err} (tolerance rtol = atol = 2e-5)")
+    torch.testing.assert_close(y, k8_y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(h_last, k8_h, rtol=2e-5, atol=2e-5)
+    del h_all, y, k8_y
+    _build.reset_launches()
+    dbu.requires_grad_(True)
+    try:
+        selective_scan(da, dbu, cm, h0=h0, return_state=True)
+    except ValueError as err:
+        log(f"phase 8(a) K8 on an operand that requires grad raises: {err}")
+    else:
+        raise AssertionError("phase 8(a): K8 took an operand that requires grad")
+    if _build.LAUNCHES["selective_scan"]:
+        raise AssertionError("phase 8(a): K8 launched on an operand that requires grad")
+    del da, dbu, cm, h0
+    torch.cuda.empty_cache()
+
+
+def train_full_width(np, torch, seed: int) -> None:
+    """Phase 8(b): falcon-mamba-7b at full width, cut to 2 of its 64
+    layers, trained on the card by ``Trainer.run`` for 6 steps at the
+    launcher's defaults (global batch 8, seq 256, lr 3e-4 with one
+    warmup step, bf16 weights from the seed) with a CORE checkpoint at
+    step 6; one more step from the in-memory state under the profiler;
+    two nodes of group 0 failed, ``restore_latest`` bit-equal to the
+    saved state, ``ckpt.repair`` recovered, and 2 steps resumed from the
+    restored state, whose step-7 loss is within 1e-3 relative of the
+    in-memory state's. K8 is never launched."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import partition
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import convert
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    full = get_config("falcon_mamba_7b")
+    cfg = dataclasses.replace(full, num_layers=2)
+    steps = 6
+    lc = LoopConfig(steps=steps, ckpt_every=steps, log_every=1, seq_len=256, global_batch=8,
+                    seed=seed, num_nodes=100)
+    oc = opt.OptConfig(lr=3e-4, warmup_steps=min(20, steps // 10 + 1), decay_steps=steps)
+    tr = Trainer(cfg, lc, oc, device="cuda")
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    params = list(state.params.parameters())
+    n_params = sum(p.numel() for p in params)
+    p_bytes = sum(p.numel() * p.element_size() for p in params)
+    tokens = lc.global_batch * lc.seq_len
+    log(f"phase 8(b) falcon-mamba-7b d_model {cfg.d_model}, d_inner {cfg.d_inner}, N "
+        f"{cfg.ssm_state}, dt_rank {cfg.dt_rank}, vocab {cfg.vocab_size}, {cfg.num_layers} of "
+        f"{full.num_layers} layers: {n_params} parameters, {p_bytes} bytes, f32 m and v "
+        f"{8 * n_params} bytes, state built on the card in {time.perf_counter() - t0:.3f} s; "
+        f"batch {lc.global_batch} x seq {lc.seq_len} = {tokens} tokens a step")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = tr.run(state)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    walls = [rec["sec"] for rec in tr.metrics_log]
+    med = statistics.median(walls[1:])
+    man = tr.ckpt.manifests[steps]
+    for rec in tr.metrics_log:
+        log(f"phase 8(b) step {rec['step']}: wall {rec['sec']:.6f} s, loss {rec['loss']:.6f}, "
+            f"grad norm {rec['grad_norm']:.6f}")
+    log(f"phase 8(b) train: median step wall (steps 2-{steps}) {med:.6f} s, "
+        f"{tokens / med:.3f} tokens/s; max_memory_allocated {peak} bytes; Trainer.run "
+        f"{run_s:.3f} s with the save; CORE checkpoint at step {steps}: {man.total_bytes} "
+        f"bytes in {len(man.group_ids)} groups of {tr.ckpt.code}, save wall "
+        f"{man.save_seconds:.6f} s")
+    losses = [rec["loss"] for rec in tr.metrics_log]
+    if len(losses) != steps or not all(np.isfinite(losses)) or int(state.step) != steps:
+        raise AssertionError(f"phase 8(b): losses {losses}, step {int(state.step)}")
+
+    saved = partition.flatten(ts.TrainState(convert.stacked_tree(state.params), state.opt,
+                                            state.step))[0]
+    store, code = tr.store, tr.ckpt.code
+    gid = man.group_ids[0]
+    victims = [store.node_of((gid, 0, 0)), store.node_of((gid, 1, 3))]
+    store.fail_nodes(victims)
+    hit = sum(1 for node in store.placement.values() if node in victims)
+    t0 = time.perf_counter()
+    restored = tr.restore_latest()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    rep = tr.last_restore_report
+    back = partition.flatten(ts.TrainState(convert.stacked_tree(restored.params),
+                                           restored.opt, restored.step))[0]
+    equal = len(back) == len(saved) and all(_bits_equal(torch, a, b) for a, b in zip(saved, back))
+    log(f"phase 8(b) restore_latest with nodes {victims} down ({hit} blocks lost): wall "
+        f"{restore_s:.6f} s, {rep.blocks_fetched} blocks / {rep.bytes_fetched} bytes fetched; "
+        f"{len(saved)} leaves bit-equal {equal}")
+    if not equal or rep.blocks_fetched <= 0:
+        raise AssertionError("phase 8(b): the restored state differs from the saved one")
+    del saved, back
+    t0 = time.perf_counter()
+    fixed = tr.ckpt.repair(steps)
+    repair_s = time.perf_counter() - t0
+    lost = sum(int(store.failure_matrix(g, code.rows, code.n).sum()) for g in man.group_ids)
+    log(f"phase 8(b) repair: wall {repair_s:.6f} s, {fixed.blocks_repaired} blocks repaired "
+        f"from {fixed.blocks_fetched} fetched ({fixed.bytes_fetched} bytes), recovered "
+        f"{fixed.recovered}, {lost} blocks still missing")
+    if not fixed.recovered or lost or fixed.blocks_repaired != hit:
+        raise AssertionError(f"phase 8(b): repair recovered {fixed.recovered}, {lost} missing")
+
+    # step 7 from the state in memory, profiled: where a step's time goes
+    batch = tr.pipeline.device_batch(steps, tr.dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = tr.step_fn(state, batch)
+        memory_loss = float(metrics["loss"])
+        prof_s = time.perf_counter() - t0
+    device_breakdown(prof, "phase 8(b) train step 7 (profiled)", prof_s)
+    del prof, state
+    torch.cuda.empty_cache()
+    resumed = []
+    for step in range(steps, steps + 2):
+        t0 = time.perf_counter()
+        restored, metrics = tr.step_fn(restored, tr.pipeline.device_batch(step, tr.dev))
+        resumed.append(float(metrics["loss"]))
+        log(f"phase 8(b) resumed step {step + 1}: wall {time.perf_counter() - t0:.6f} s, "
+            f"loss {resumed[-1]:.6f}")
+    rel = abs(resumed[0] - memory_loss) / abs(memory_loss)
+    k8 = _build.LAUNCHES["selective_scan"]
+    log(f"phase 8(b) step-7 loss resumed {resumed[0]} vs in memory {memory_loss} (relative "
+        f"{rel}, tolerance 1e-3); step {int(restored.step)}; K8 launches over phase 8(b) {k8}")
+    if rel > 1e-3 or int(restored.step) != steps + 2 or not all(np.isfinite(resumed)):
+        raise AssertionError("phase 8(b): the resumed run differs from the in-memory one")
+    if k8:
+        raise AssertionError(f"phase 8(b): training launched K8 {k8} times")
+    del restored, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_paths(np, torch, seed: int) -> None:
+    """Phase 8: the training path on the card."""
+    t0 = time.perf_counter()
+    train_card_vs_cpu(np, torch, seed)
+    log(f"phase 8(a) done in {time.perf_counter() - t0:.1f} s")
+    train_full_width(np, torch, seed)
+    log(f"phase 8(b) done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1310,6 +1553,9 @@ def main() -> int:
     ap.add_argument("--storage-only", action="store_true",
                     help="build, run phase 7 (the scenario engine and the CORE checkpoint "
                          "layer on the card), and stop (no other phase, no result line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, run phase 8 (the training path on the card), and stop "
+                         "(no other phase, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1356,6 +1602,15 @@ def main() -> int:
         log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
         log(smi)
         return 0
+    # float32 products in full float32, stated: cuDNN convolutions would
+    # take TF32 by default (the port's conv is a shifted sum, not cuDNN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.train_only:
+        train_paths(np, torch, args.seed)
+        log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        return 0
     rows = check_kernels(np, torch, args.seed)
     matrix_rows = check_matrix_kernels(np, torch, args.seed)
     codec = codec_path(np, torch, args.seed)
@@ -1367,10 +1622,6 @@ def main() -> int:
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
     bucketed = serve_bucketed(np, args.seed)
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
-    # float32 products in full float32, stated: cuDNN convolutions would
-    # take TF32 by default (the port's conv is a shifted sum, not cuDNN)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     scan_row = check_scan_kernel(torch, args.seed)
     reduced_model_agrees(np, torch, args.seed)
     scan_launches = full_width_model(np, torch, args.seed)
@@ -1378,6 +1629,8 @@ def main() -> int:
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
     storage = storage_paths(np, torch, args.seed)
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+    train_paths(np, torch, args.seed)
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the path that runs it
     source = {"gf256_matmul_planes": codec, "xor_parity": codec,
               "gf256_matmul_planes_batched": bucketed, "xor_parity_batched": bucketed}

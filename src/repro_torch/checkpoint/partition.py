@@ -11,7 +11,11 @@ an empty subtree) over leaves that are torch tensors or numpy arrays
 (scalars too). Leaves are visited in the order of ``jax.tree.flatten``:
 a dict's keys sorted (an ``OrderedDict``'s in its own order), lists and
 tuples in order, so the byte stream does not depend on how a dict was
-built. A leaf is serialized as its raw bytes; ``LeafSpec.dtype`` is the
+built. An object with ``tree_flatten`` / ``tree_unflatten`` (as
+``train.train_step.TrainState``) is a node whose children are what its
+``tree_flatten`` returns, in that order, as a node the reference
+registers with ``jax.tree_util.register_pytree_node`` flattens. A leaf
+is serialized as its raw bytes; ``LeafSpec.dtype`` is the
 numpy name of its dtype (``"bfloat16"``, ``"float32"``, ``"int64"``,
 ...). Restored leaves are CPU tensors of the saved dtype and shape.
 """
@@ -49,8 +53,8 @@ class StreamSpec:
 def flatten(tree) -> tuple[list, object]:
     """``tree`` -> (leaves, treedef). The treedef is a plain nested
     tuple: ``"*"`` for a leaf, ``("none",)``, ``("list", children)``,
-    ``("tuple", children)``, ``("dict", keys, children)`` (keys sorted)
-    or ``("odict", keys, children)``."""
+    ``("tuple", children)``, ``("dict", keys, children)`` (keys sorted),
+    ``("odict", keys, children)`` or ``("node", type, aux, children)``."""
     leaves: list = []
 
     def walk(node):
@@ -63,6 +67,9 @@ def flatten(tree) -> tuple[list, object]:
         if isinstance(node, (list, tuple)):
             kind = "list" if isinstance(node, list) else "tuple"
             return (kind, tuple(walk(c) for c in node))
+        if hasattr(node, "tree_flatten"):
+            children, aux = node.tree_flatten()
+            return ("node", type(node), aux, tuple(walk(c) for c in children))
         leaves.append(node)
         return LEAF
 
@@ -81,6 +88,8 @@ def unflatten(treedef, leaves) -> object:
         if kind in ("dict", "odict"):
             items = [(k, build(c)) for k, c in zip(node[1], node[2])]
             return OrderedDict(items) if kind == "odict" else dict(items)
+        if kind == "node":
+            return node[1].tree_unflatten(node[2], [build(c) for c in node[3]])
         children = [build(c) for c in node[1]]
         return children if kind == "list" else tuple(children)
 

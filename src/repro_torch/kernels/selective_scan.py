@@ -19,6 +19,13 @@ no counterpart, since the CUDA kernel fixes its own launch shape. It is
 bytes-bound (4 flops per 8 bytes of da and dbu). The wrapper launches it
 for a CUDA tensor and runs ``selective_scan_plain`` for a CPU tensor;
 the CUDA path never falls back.
+
+K8 is forward only, as the TPU kernel is: the kernel writes through raw
+pointers, so its output would carry no ``grad_fn`` and everything
+upstream of it would silently get no gradient. The wrapper therefore
+raises ``ValueError`` when grad mode is on and an operand requires
+grad, on every device. Training runs ``models.mamba._chunk_scan``, the
+reference's associative scan, instead.
 """
 
 from __future__ import annotations
@@ -42,6 +49,10 @@ def selective_scan_plain(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor,
 
 
 def _check(da, dbu, cm, h0) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (da, dbu, cm, h0)):
+        raise ValueError("selective_scan (K8) has no backward: an operand requires grad "
+                         "(training runs models.mamba._chunk_scan)")
     # on the card, for N >= 4, the kernel reads da, dbu and h0 as float4
     vec = da.device.type != "cpu" and da.dim() == 4 and da.shape[-1] >= 4
     for name, t in (("da", da), ("dbu", dbu), ("cm", cm), ("h0", h0)):

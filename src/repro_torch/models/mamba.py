@@ -1,4 +1,5 @@
-"""Mamba-1 selective SSM (falcon-mamba family), for serving on one card.
+"""Mamba-1 selective SSM (falcon-mamba family): serving and training on
+one card.
 
 Prefill runs the whole prompt in ``fit_chunk(S, scan_chunk)`` chunks;
 decode runs one token with the conv ring and the SSM state carried in
@@ -7,6 +8,16 @@ the cache. Both go through ``mamba_mix``, whose chunk body is
 ``kernels.selective_scan``) from the carried state, in place of the
 reference's associative scan and output einsum. On a CUDA tensor the
 scan is the CUDA kernel; on a CPU tensor its plain torch version.
+
+Training (``lm_loss``) runs the reference's own chunk body instead:
+``_chunk_scan``, the associative scan of src/repro/models/mamba.py in
+plain torch ops, then the output einsum. The reference trains through
+``associative_scan`` too, never through the TPU kernel, which has no
+backward; K8 has none either and refuses an operand that requires grad.
+``mamba_mix`` takes ``_chunk_scan`` exactly when grad mode is on and the
+input, the carried state or a parameter of the layer requires grad. It
+is the reference's second path, not a fallback: prefill and decode run
+under ``inference_mode`` and always launch K8.
 
 Layouts are the reference's (src/repro/models/mamba.py): dense weights
 ``(d_in, d_out)`` applied as ``x @ w``, and the stacked cache
@@ -19,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -29,6 +41,7 @@ from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models.shardings import SINGLE, MeshAxes, ServePlan
+from repro_torch.models.transformer import chunked_xent
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -123,10 +136,57 @@ def _ssm_params(u, p: MambaLayer, cfg: ArchConfig):
     return da, dbu, cm.float().contiguous()
 
 
+def _combine(x, y):
+    a1, b1 = x
+    a2, b2 = y
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(a, b):
+    """a[0], b[0], a[1], b[1], ... along axis 1 (a one longer, or equal)."""
+    pairs = torch.stack([a[:, : b.shape[1]], b], dim=2).flatten(1, 2)
+    return pairs if a.shape[1] == b.shape[1] else torch.cat([pairs, a[:, -1:]], dim=1)
+
+
+def _associative_scan(da, db):
+    """``jax.lax.associative_scan(_combine, (da, db), axis=1)`` with its
+    own odd/even recursion: pairs combined, the half-length scan by
+    recursion gives the odd elements, each even element is an odd one
+    combined with the next input. The same association of products and
+    sums as the reference, so float results stay close."""
+    n = da.shape[1]
+    if n < 2:
+        return da, db
+    odd = _associative_scan(*_combine((da[:, 0:-1:2], db[:, 0:-1:2]),
+                                      (da[:, 1::2], db[:, 1::2])))
+    prev = odd if n % 2 else (odd[0][:, :-1], odd[1][:, :-1])
+    even = _combine(prev, (da[:, 2::2], db[:, 2::2]))
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip((da, db), even)]
+    return _interleave(even[0], odd[0]), _interleave(even[1], odd[1])
+
+
+def _chunk_scan(da, dbu, h0):
+    """Associative scan of h_t = da_t h_{t-1} + dbu_t within one chunk.
+    da/dbu: (B, c, di, N) f32; h0: (B, di, N) f32. Returns (h_all, h_last)."""
+    a_cum, b_cum = _associative_scan(da, dbu)
+    h_all = b_cum + a_cum * h0[:, None]
+    return h_all, h_all[:, -1]
+
+
+def _needs_grad(x, p: MambaLayer, init_state) -> bool:
+    if not torch.is_grad_enabled():
+        return False
+    carried = init_state.values() if init_state else ()
+    return any(t.requires_grad for t in (x, *carried, *p.parameters()))
+
+
 def mamba_mix(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE, init_state=None):
     """The Mamba mixer. x: (B, S, d_model) -> (B, S, d_model), and the
     new state {conv, ssm}. init_state: None (a fresh prompt) or
-    dict(conv, ssm) carried from the previous call."""
+    dict(conv, ssm) carried from the previous call. Under grad (see the
+    module docstring) each chunk runs ``_chunk_scan`` and the output
+    einsum; otherwise K8."""
+    train = _needs_grad(x, p, init_state)
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
     xz = L.dense(x, p.in_proj.w)  # (B,S,2di)
@@ -141,7 +201,11 @@ def mamba_mix(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE, init_sta
     ys = []
     for c0 in range(0, s, chunk):
         da, dbu, cm = _ssm_params(u[:, c0 : c0 + chunk], p, cfg)
-        y, h = selective_scan(da, dbu, cm, h0=h, return_state=True)
+        if train:
+            h_all, h = _chunk_scan(da, dbu, h)
+            y = torch.einsum("bcdn,bcn->bcd", h_all, cm)
+        else:
+            y, h = selective_scan(da, dbu, cm, h0=h, return_state=True)
         ys.append(y.to(x.dtype))
     y = torch.cat(ys, dim=1)
     y = y + u * p.d_skip.to(u.dtype)
@@ -150,9 +214,37 @@ def mamba_mix(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE, init_sta
     return out, {"conv": conv_state, "ssm": h}
 
 
+def apply_mamba_layer(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE):
+    y, _ = mamba_mix(L.norm(x, p.norm, cfg), p, cfg, ax)
+    return x + y
+
+
 # ---------------------------------------------------------------------------
 # LM entry points
 # ---------------------------------------------------------------------------
+
+
+def _on(t, device) -> torch.Tensor:
+    """A batch entry (numpy array or tensor) as a tensor on ``device``."""
+    t = t if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
+    return t.to(device)
+
+
+def lm_loss(params: MambaLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGLE):
+    """Mean next-token cross-entropy of ``batch`` (tokens, labels, and an
+    optional loss_mask, each (B, S)): embedding, the layers with
+    per-layer remat, ``ln_f``, and ``chunked_xent`` against the tied
+    embedding."""
+    x = L.embed_tokens(params.embed, batch["tokens"])
+
+    def body(h, lp):
+        return apply_mamba_layer(h, lp, cfg, ax)
+
+    x = stack.scan_layers(body, x, params.layers)
+    x = L.norm(x, params.ln_f, cfg)
+    mask = batch.get("loss_mask")
+    return chunked_xent(x, params.embed, _on(batch["labels"], x.device), cfg, ax,
+                        None if mask is None else _on(mask, x.device))
 
 
 class TensorSpec(NamedTuple):

@@ -2,11 +2,13 @@
 
     api = get_model(cfg)
     params            = api.init(cfg, seed, device=...)
+    loss              = api.loss(params, batch, cfg, ax)
     logits, cache     = api.prefill(params, batch, cfg, ax, cache_len)
     logits, cache     = api.decode(params, token, cache, pos, cfg, ax, plan)
 
-``batch`` is a dict with ``tokens``. The port serves the ssm family;
-the other families, and ``loss`` (training), wait in ROADMAP queue 1.
+``batch`` is a dict with ``tokens`` (and ``labels``, an optional
+``loss_mask`` for ``loss``). The port serves and trains the ssm family;
+the other families wait in ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -29,10 +31,6 @@ class ModelApi:
     cache_shape: Callable  # (cfg, batch, cache_len) -> {name: TensorSpec}
 
 
-def _not_ported_loss(params, batch, cfg, ax):
-    raise NotImplementedError("training (loss) is not ported yet (ROADMAP queue 1)")
-
-
 def _ssm_prefill(params, batch, cfg, ax, cache_len):
     return mamba.prefill(params, batch["tokens"], cfg, ax, cache_len)
 
@@ -40,7 +38,7 @@ def _ssm_prefill(params, batch, cfg, ax, cache_len):
 SSM = ModelApi(
     family="ssm",
     init=mamba.init_lm,
-    loss=_not_ported_loss,
+    loss=mamba.lm_loss,
     prefill=_ssm_prefill,
     decode=mamba.decode_step,
     init_cache=mamba.init_cache,

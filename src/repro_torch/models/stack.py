@@ -3,8 +3,11 @@
 The JAX package stacks every layer's parameters on a leading ``L`` axis
 and walks them with ``lax.scan``. The port keeps one module per layer in
 an ``nn.ModuleList`` and walks it with a Python loop; the caches keep the
-reference's stacked layout (leading ``L``). Remat has no counterpart:
-serving keeps no activations for a backward pass.
+reference's stacked layout (leading ``L``). ``scan_layers`` rematerializes
+each layer, as the reference's ``jax.checkpoint(policy=nothing_saveable)``
+body does: backward recomputes a layer from its input, so the saved
+activations are one residual per layer. The reference's two-level remat
+(``block``) is used only by the dense family and waits for it.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Callable
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def stacked_init(init_fn: Callable[[], nn.Module], num: int) -> nn.ModuleList:
@@ -21,9 +25,11 @@ def stacked_init(init_fn: Callable[[], nn.Module], num: int) -> nn.ModuleList:
 
 
 def scan_layers(body: Callable, x: torch.Tensor, layers: nn.ModuleList) -> torch.Tensor:
-    """x -> fold ``body(x, layer) -> x`` over the layers."""
+    """x -> fold ``body(x, layer) -> x`` over the layers, each layer
+    keeping only its input for backward and recomputing the rest (the
+    body is deterministic, so no RNG state is saved)."""
     for layer in layers:
-        x = body(x, layer)
+        x = checkpoint(body, x, layer, use_reentrant=False, preserve_rng_state=False)
     return x
 
 

@@ -3,7 +3,9 @@ its source-group partitioning and every group count) and matrix kernel
 (K5, K6, K7, K7 batched) against its plain torch version, and the codec's
 device path against its CPU path, byte for byte; the selective scan (K8)
 against its plain version at rtol = atol = 2e-5 (y) and bit for bit
-(h_last), over both of its bodies. Every test is marked
+(h_last), over both of its bodies, and its refusal of an operand that
+requires grad; one reduced falcon-mamba train step on the card against
+the CPU. Every test is marked
 ``cuda`` and skips without a CUDA device (the kernels are CUDA C++ and
 have no CPU mode). Imports nothing of JAX, so it runs where the port
 runs:
@@ -233,3 +235,68 @@ def test_selective_scan_size_t_offsets(card):
     want_y, want_h = selective_scan_plain(da, dbu, cm, h0)
     torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(h, want_h, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_selective_scan_refuses_grad_on_the_card(card):
+    """K8 has no backward: an operand on the card that requires grad
+    raises under grad mode, and nothing is launched; the same call
+    without grad launches once."""
+    from repro_torch.kernels.selective_scan import selective_scan
+
+    da, dbu, cm, h0 = _scan_inputs(card, 4, 1, 8192, 16, 11)
+    _build.reset_launches()
+    for t in (da, dbu, cm, h0):
+        t.requires_grad_(True)
+        with pytest.raises(ValueError, match="no backward"):
+            selective_scan(da, dbu, cm, h0=h0, return_state=True)
+        t.requires_grad_(False)
+    assert _build.LAUNCHES["selective_scan"] == 0
+    dbu.requires_grad_(True)
+    with torch.no_grad():
+        selective_scan(da, dbu, cm, h0=h0, return_state=True)
+    assert _build.LAUNCHES["selective_scan"] == 1
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_card_matches_cpu(card, monkeypatch):
+    """One train step of the reduced falcon-mamba (2 layers) in float32,
+    TF32 off, from the same weights on the card and on the CPU: the loss
+    within rtol = atol = 1e-4, each gradient leaf within 1e-3 of its max
+    |CPU|, the parameters after the update within 1e-5 (a tenth of the
+    step's learning rate), and K8 never launched by the step. The card's
+    copy of the weights goes through ``models.convert`` both ways."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import convert
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = get_config("falcon_mamba_7b").reduced(num_layers=2)
+    api = get_model(cfg)
+    oc = opt.OptConfig(lr=1e-4, warmup_steps=1)
+    cpu = api.init(cfg, 0, device="cpu", dtype=torch.float32).requires_grad_(True)
+    models = {"cpu": cpu, "cuda": convert.mamba_from_jax(convert.to_reference_tree(cpu), cfg,
+                                                         device=card, trainable=True)}
+    batch = SyntheticPipeline(cfg, 32, 2, 0).batch_at(0)
+    step = ts.make_train_step(cfg, api, SINGLE, oc)
+    out = {}
+    _build.reset_launches()
+    for dev, model in models.items():
+        loss = api.loss(model, batch, cfg, SINGLE)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        state = ts.TrainState(model, opt.init_opt_state(convert.stacked_tree(model), oc),
+                              torch.zeros((), dtype=torch.int32, device=model.device))
+        state, metrics = step(state, batch)
+        out[dev] = (float(metrics["loss"]), [g.cpu() for g in grads],
+                    [p.detach().cpu() for p in state.params.parameters()])
+    assert _build.LAUNCHES["selective_scan"] == 0
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4, abs=1e-4)
+    for g, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((g - want).abs().max()) <= 1e-3 * float(want.abs().max())
+    for p, want in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(p, want, rtol=0, atol=1e-5)

@@ -46,6 +46,11 @@ def test_every_module_imports_without_jax_or_repro():
                    "repro_torch.checkpoint", "repro_torch.checkpoint.partition",
                    "repro_torch.checkpoint.core_ckpt"}
         assert slice_6 <= set(names), slice_6 - set(names)
+        slice_7 = {"repro_torch.train", "repro_torch.train.optimizer",
+                   "repro_torch.train.train_step", "repro_torch.train.elastic",
+                   "repro_torch.train.loop", "repro_torch.data", "repro_torch.data.pipeline",
+                   "repro_torch.models.transformer", "repro_torch.launch.train"}
+        assert slice_7 <= set(names), slice_7 - set(names)
         print(len(names))
         """
     )
@@ -55,7 +60,7 @@ def test_every_module_imports_without_jax_or_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 62  # every subpackage was walked
+    assert int(proc.stdout.strip()) >= 71  # every subpackage was walked
 
 
 def test_no_jax_or_repro_import_lines():
@@ -79,8 +84,12 @@ def _entry_points():
     from repro_torch.storage.netmodel import ClusterProfile
     from repro_torch.storage.repair import BlockFixer
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch import serve, train
     from repro_torch.models import mamba
+    from repro_torch.models.registry import get_model
+    from repro_torch.train import optimizer, train_step
+    from repro_torch.train.loop import LoopConfig, Trainer
 
     code = CoreCode(9, 6, 3)
     cfg = get_config("falcon_mamba_7b").reduced()
@@ -101,12 +110,19 @@ def _entry_points():
         "init_lm": lambda: mamba.init_lm(cfg, 0),
         "init_cache": lambda: mamba.init_cache(cfg, 2),
         "launch_serve": lambda: serve.main(["--arch", "falcon_mamba_7b", "--reduced"]),
+        "device_batch": lambda: SyntheticPipeline(cfg, 16, 2).device_batch(0),
+        "init_state": lambda: train_step.init_state(cfg, get_model(cfg), 0,
+                                                    optimizer.OptConfig()),
+        "trainer": lambda: Trainer(cfg, LoopConfig()),
+        "launch_train": lambda: train.main(["--arch", "falcon_mamba_7b", "--reduced",
+                                            "--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["resolve_device", "resolve_cuda", "codec", "coalescer", "fixer", "checkpointer",
-             "gateway", "mamba_lm", "init_lm", "init_cache", "launch_serve"]
+             "gateway", "mamba_lm", "init_lm", "init_cache", "launch_serve", "device_batch",
+             "init_state", "trainer", "launch_train"]
 )
 def test_default_device_raises_without_cuda(name, monkeypatch):
     """No silent CPU fallback: the default device is the card."""
@@ -349,6 +365,39 @@ def test_scan_misaligned_operand_raises(what, fake_library):
     with pytest.raises(ValueError, match=f"{what} must be 16-byte aligned"):
         selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"], return_state=True)
     assert all(n == 0 for n in _build.LAUNCHES.values()) and not lib.calls
+
+
+@pytest.mark.parametrize("what", ["da", "dbu", "cm", "h0"])
+@pytest.mark.parametrize("on", ["cuda", "cpu"])
+def test_scan_refuses_an_operand_that_requires_grad(what, on, fake_library, monkeypatch):
+    """K8 has no backward: under grad an operand that requires grad
+    raises ValueError, on the card's launch path and on the CPU alike,
+    before anything runs; with grad off, or with no operand requiring
+    grad, the same call launches (or runs the plain version)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import selective_scan as ssk
+
+    lib = fake_library(0)
+    _build.reset_launches()
+    plain = []
+    real_plain = ssk.selective_scan_plain
+    monkeypatch.setattr(ssk, "selective_scan_plain", lambda *a: plain.append(1) or real_plain(*a))
+    t = _scan_operands(*DECODE_STEP) if on == "cuda" else {
+        k: v.as_subclass(torch.Tensor).clone() for k, v in _scan_operands(2, 3, 8, 4).items()}
+    t[what].requires_grad_(True)
+
+    def call():
+        return ssk.selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"], return_state=True)
+
+    with pytest.raises(ValueError, match="no backward"):
+        call()
+    assert all(n == 0 for n in _build.LAUNCHES.values()) and not lib.calls and not plain
+    with torch.no_grad():
+        call()
+    if on == "cuda":
+        assert _build.LAUNCHES["selective_scan"] == 1 and len(lib.calls) == 1
+    else:
+        assert plain == [1] and not lib.calls
 
 
 def test_scan_small_n_takes_any_alignment(fake_library):

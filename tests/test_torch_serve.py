@@ -154,15 +154,18 @@ def test_greedy_sample_takes_the_first_maximum(seed):
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_config_registry(arch):
     """The reference's ids; the ported family resolves to the reference's
-    config, the others raise until their slice."""
+    config and trains through its family's ``lm_loss`` as the reference
+    does, the others raise until their slice."""
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     want = jconfigs.get_config(arch)
     if arch in configs.PORTED:
         cfg = configs.get_config(arch.replace("_", "-"))
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
         assert get_model(cfg).family == want.family
-        with pytest.raises(NotImplementedError, match="training"):
-            get_model(cfg).loss(None, None, cfg, None)
+        from repro_torch.models import mamba
+
+        assert get_model(cfg).loss is mamba.lm_loss
+        assert jax_get_model(want).loss.__name__ == "lm_loss"
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             configs.get_config(arch)

@@ -19,7 +19,14 @@ ARCH_IDS = [
     "seamless_m4t_large_v2",
     "pixtral_12b",
 ]
-PORTED = ("falcon_mamba_7b",)  # the ssm family
+PORTED = (  # the ssm, dense and vlm families
+    "falcon_mamba_7b",
+    "qwen2_72b",
+    "mistral_large_123b",
+    "starcoder2_15b",
+    "command_r_35b",
+    "pixtral_12b",
+)
 
 
 def get_config(arch: str) -> ArchConfig:

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models.mamba import TensorSpec
+from repro_torch.models.layers import TensorSpec
 
 
 def _bf16(x: np.ndarray) -> torch.Tensor:

@@ -8,7 +8,9 @@ The single-process engine (train/loop.py) on one device: the card by
 default, raising without one; ``--device cpu`` runs the plain torch path
 on the host. The CORE checkpoint layer is always on. The reference's
 ``--mesh`` and ``--devices`` wait for the mesh slice and raise
-``NotImplementedError``. Ends with ``done at step N; final loss X``.
+``NotImplementedError``, as does an ``--arch`` of any family but ssm
+(``Trainer`` refuses it: dense training is the next slice). Ends with
+``done at step N; final loss X``.
 """
 
 from __future__ import annotations

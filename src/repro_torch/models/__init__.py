@@ -1,1 +1,3 @@
-"""The model stack of the port: the ssm family (falcon-mamba) so far."""
+"""The model stack of the port: the ssm family (falcon-mamba) and the
+dense and vlm families (qwen2, mistral-large, starcoder2, command-r,
+pixtral)."""

@@ -1,5 +1,6 @@
 """Weights and optimizer state between the JAX package's layout and the
-port's ``MambaLM``, both ways.
+port's models (``MambaLM`` for the ssm family, ``TransformerLM`` for
+dense and vlm), both ways.
 
 The reference stacks each layer leaf on a leading ``L`` axis; the port
 keeps one module per layer, so the axis is sliced into ``layers.<i>``,
@@ -22,9 +23,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.mamba import MambaLM
+from repro_torch.models.registry import get_model
 
 
 def to_tensor(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -83,14 +85,15 @@ def _split(name: str) -> tuple[list[str], int | None]:
     return parts, None
 
 
-def mamba_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
-                   dtype: torch.dtype | None = None, trainable: bool = False) -> MambaLM:
-    """``tree``: the reference's ``mamba.init_lm`` output as numpy leaves
-    (``jax.tree.map(np.asarray, params)``), or ``stacked_tree``'s output.
-    Returns a ``MambaLM`` on ``device`` holding exactly those values
-    (cast to ``dtype`` when given); its parameters require grad when
-    ``trainable``."""
-    model = MambaLM(cfg, device=device, seed=None)
+def from_jax(tree: dict, cfg: ArchConfig, *, device=None,
+             dtype: torch.dtype | None = None, trainable: bool = False) -> nn.Module:
+    """``tree``: the reference's ``init_lm`` output for ``cfg``'s family
+    as numpy leaves (``jax.tree.map(np.asarray, params)``), or
+    ``stacked_tree``'s output. Returns the family's model on ``device``
+    holding exactly those values (cast to ``dtype`` when given); its
+    parameters require grad when ``trainable``. An unported family
+    raises ``NotImplementedError`` (the registry's)."""
+    model = get_model(cfg).init(cfg, None, device=device)
     state = {}
     for path, leaf in _flatten(tree):
         if path.startswith("layers."):
@@ -105,7 +108,7 @@ def mamba_from_jax(tree: dict, cfg: ArchConfig, *, device=None,
     return model
 
 
-def stacked_tree(model: MambaLM, values=None) -> dict:
+def stacked_tree(model: nn.Module, values=None) -> dict:
     """The reference's stacked tree of ``model``'s parameters (detached),
     or of ``values``, one tensor per parameter in ``model.parameters()``
     order (its gradients), on their own device."""
@@ -124,7 +127,7 @@ def stacked_tree(model: MambaLM, values=None) -> dict:
     return tree
 
 
-def to_reference_tree(model: MambaLM) -> dict:
+def to_reference_tree(model: nn.Module) -> dict:
     """``model``'s parameters as the reference's stacked tree of CPU
     tensors, each in its parameter's dtype: the bytes the reference's
     ``np.asarray`` of the same parameters holds."""
@@ -132,7 +135,7 @@ def to_reference_tree(model: MambaLM) -> dict:
 
 
 @torch.no_grad()
-def load_stacked(model: MambaLM, tree: dict) -> None:
+def load_stacked(model: nn.Module, tree: dict) -> None:
     """Write a stacked tree's values into ``model``'s parameters, in
     place (dtype and device of each parameter kept)."""
     for name, p in model.named_parameters():

@@ -1,5 +1,5 @@
-"""Shared model primitives the Mamba path uses: norms, dense projections,
-chunk fitting, embeddings.
+"""Shared model primitives: norms, RoPE, GQA attention (train / prefill /
+decode), MLPs, embeddings and the loss.
 
 Parameters are ``nn.Module``s whose attributes carry the JAX package's
 names (``norm.scale``, ``in_proj.w``), so a state dict key is the
@@ -7,18 +7,42 @@ reference's tree path. Layouts are the reference's: a dense weight is
 ``(d_in, d_out)`` and is applied as ``x @ w``; an embedding is
 ``(vocab, d_model)``. Weights are bf16 by default, norm scales f32; the
 arithmetic follows the reference's dtype promotion (a bf16 activation
-plus an f32 bias is f32). Attention and MLPs wait for the dense family.
+plus an f32 bias is f32; ``dense`` rounds the bias to the product's
+dtype first, as the reference's ``b.astype(y.dtype)`` does).
+
+Attention is the reference's, op for op (src/repro/models/layers.py):
+the train / prefill path walks ``fit_chunk(S, attn_chunk)`` query chunks
+and materializes each chunk's (B, H, chunk, S) float32 scores, masked
+with -1e30 where the causal (and sliding-window) mask is false; the
+decode path attends one token over a ring-buffer cache with the KV
+heads never expanded (``_grouped_attend``). The products are plain
+``torch.einsum`` / ``@`` in the operands' dtype, with no library
+attention: ``einsum_f32`` follows the reference's non-TPU branch (the
+product in the operands' dtype, then upcast), which on the card is a
+bf16 product accumulated in float32 and rounded once. The reference's
+sequence-sharded decode (a ``shard_map`` flash combine) waits for the
+mesh slice, as does ``cross_attention`` for the encdec family.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.shardings import MeshAxes, ServePlan
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one cache leaf (the reference's ShapeDtypeStruct)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -105,6 +129,84 @@ def init_dense(gen, d_in: int, d_out: int, bias: bool, dtype=torch.bfloat16,
     return Dense(w, b)
 
 
+def _promote(*ts: torch.Tensor) -> list[torch.Tensor]:
+    """The operands in their common dtype (bf16 with f32 gives f32, as
+    in JAX): ``torch.einsum`` takes no mixed dtypes."""
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return [t.to(dtype) for t in ts]
+
+
+def einsum_f32(subscripts: str, *ops: torch.Tensor) -> torch.Tensor:
+    """The reference's non-TPU branch: the product in the (promoted)
+    operands' dtype, then upcast to float32."""
+    return torch.einsum(subscripts, *_promote(*ops)).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Half-split rotary embedding. x: (B, S, H, D) with D even;
+    positions: (S,) or (B, S); angles in float32."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions.to(x.device, torch.float32)[..., None] * freqs  # (S | B S, half)
+    ang = ang[None, :, None, :] if positions.dim() == 1 else ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+class Attn(nn.Module):
+    """``wq``, ``wk``, ``wv`` (biased when ``cfg.qkv_bias``) and ``wo``."""
+
+    def __init__(self, cfg: ArchConfig, gen, dtype, device):
+        super().__init__()
+        self.wq = init_dense(gen, cfg.d_model, cfg.q_dim, cfg.qkv_bias, dtype, device)
+        self.wk = init_dense(gen, cfg.d_model, cfg.kv_dim, cfg.qkv_bias, dtype, device)
+        self.wv = init_dense(gen, cfg.d_model, cfg.kv_dim, cfg.qkv_bias, dtype, device)
+        self.wo = init_dense(gen, cfg.q_dim, cfg.d_model, False, dtype, device)
+
+
+def init_attn(gen, cfg: ArchConfig, dtype=torch.bfloat16, device=None) -> Attn:
+    return Attn(cfg, gen, dtype, device)
+
+
+def _dense_of(x: torch.Tensor, d: Dense) -> torch.Tensor:
+    return dense(x, d.w, getattr(d, "b", None))
+
+
+def qkv_proj(x: torch.Tensor, p: Attn, cfg: ArchConfig, ax: MeshAxes, positions):
+    """(B, S, d_model) -> q (B, S, H, hd), k and v (B, S, KV, hd); RoPE
+    on q and k when ``positions`` is given."""
+    b, s, _ = x.shape
+    q = _dense_of(x, p.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = _dense_of(x, p.wk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = _dense_of(x, p.wv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    if positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def expand_kv(k: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """(.., KV, D) -> (.., H, D), each kv head repeated over its q group
+    (``jnp.repeat``: kv head j serves q heads j*g .. j*g + g - 1)."""
+    g = cfg.num_heads // cfg.num_kv_heads
+    if g == 1:
+        return k
+    return torch.repeat_interleave(k, g, dim=-2)
+
+
 def fit_chunk(s: int, want: int) -> int:
     """Largest chunk <= want that divides s."""
     c = max(1, min(want, s))
@@ -113,8 +215,167 @@ def fit_chunk(s: int, want: int) -> int:
     return c
 
 
+def _causal_window_mask(pos_q: torch.Tensor, pos_k: torch.Tensor, window) -> torch.Tensor:
+    m = pos_q[:, None] >= pos_k[None, :]
+    if window is not None:
+        m &= pos_q[:, None] - pos_k[None, :] < window
+    return m
+
+
+def _attend_chunk(qc, k, v, inv: float, mask=None) -> torch.Tensor:
+    """One query chunk: f32 scores (B, H, chunk, S), masked with -1e30
+    where ``mask`` is false, softmax, cast to q's dtype, then the value
+    product. The in-place steps change no value."""
+    scores = torch.einsum("bqhd,bthd->bhqt", *_promote(qc, k)).to(torch.float32).mul_(inv)
+    if mask is not None:
+        scores.masked_fill_(~mask, -1e30)
+    w = torch.softmax(scores, dim=-1).to(qc.dtype)
+    del scores
+    return torch.einsum("bhqt,bthd->bqhd", *_promote(w, v))
+
+
+def attention_core_train(q, k, v, cfg: ArchConfig, ax: MeshAxes, base_pos: int = 0):
+    """Chunked causal attention. q, k, v: (B, S, H, D) (kv already
+    expanded). A loop over ``fit_chunk(S, attn_chunk)`` query chunks,
+    each chunk's scores (B, H, chunk, S) float32. Returns (B, S, H * D)."""
+    b, s, h, d = q.shape
+    chunk = fit_chunk(s, cfg.attn_chunk)
+    inv = 1.0 / math.sqrt(d)
+    pos_k = base_pos + torch.arange(s, device=q.device)
+    outs = []
+    for c0 in range(0, s, chunk):
+        mask = _causal_window_mask(pos_k[c0 : c0 + chunk], pos_k, cfg.sliding_window)
+        outs.append(_attend_chunk(q[:, c0 : c0 + chunk], k, v, inv, mask[None, None]))
+    return torch.cat(outs, dim=1).reshape(b, s, h * d)
+
+
+def _attention_full_bidir(q, k, v, cfg: ArchConfig):
+    """Unmasked attention in the same query chunks."""
+    b, s, h, d = q.shape
+    chunk = fit_chunk(s, cfg.attn_chunk)
+    inv = 1.0 / math.sqrt(d)
+    outs = [_attend_chunk(q[:, c0 : c0 + chunk], k, v, inv) for c0 in range(0, s, chunk)]
+    return torch.cat(outs, dim=1).reshape(b, s, h * d)
+
+
+def attention_train(x, p: Attn, cfg: ArchConfig, ax: MeshAxes, positions=None,
+                    bidirectional: bool = False):
+    """Self-attention over a whole sequence: projections, RoPE, the kv
+    heads expanded, chunked attention (causal, or unmasked when
+    ``bidirectional``), the output projection."""
+    s = x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = qkv_proj(x, p, cfg, ax,
+                       positions if (cfg.use_rope and cfg.head_dim % 2 == 0) else None)
+    k, v = expand_kv(k, cfg), expand_kv(v, cfg)
+    if bidirectional:
+        o = _attention_full_bidir(q, k, v, cfg)
+    else:
+        o = attention_core_train(q, k, v, cfg, ax)
+    return _dense_of(o, p.wo)
+
+
+# -- decode (KV cache) --------------------------------------------------------
+
+
+def _ring_valid(pos, smax: int, window: int | None, device=None) -> torch.Tensor:
+    """Validity of each slot of a ring-buffer cache at ``pos``. Slot i
+    holds absolute position ``pos - ((pos - i) mod smax)`` (the most
+    recent write to it); negative means never written."""
+    tpos = torch.arange(smax, device=device)
+    abs_pos = pos - torch.remainder(pos - tpos, smax)
+    valid = abs_pos >= 0
+    if window is not None:
+        valid &= (pos - abs_pos) < window
+    return valid
+
+
+def _grouped_attend(q, ck, cv, cfg: ArchConfig, valid):
+    """Grouped-query attention of one token over a cache, the KV heads
+    never expanded. q: (B, 1, H, hd); ck/cv: (B, T, KV, hd); valid: (T,)
+    bool. Returns f32 partials o (B, KV, G, 1, hd), m and l (B, KV, G, 1)."""
+    b, _, h, d = q.shape
+    kv = ck.shape[2]
+    qg = q.reshape(b, 1, kv, h // kv, d)
+    scores = einsum_f32("bqkgd,btkd->bkgqt", qg, ck) * (1.0 / math.sqrt(d))
+    scores.masked_fill_(~valid, -1e30)
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None])
+    l = e.sum(dim=-1)
+    o = einsum_f32("bkgqt,btkd->bkgqd", e.to(cv.dtype), cv)
+    return o, m, l
+
+
+def attention_decode_general(x1, cache_k, cache_v, p: Attn, cfg: ArchConfig, ax: MeshAxes,
+                             pos: int, plan: ServePlan):
+    """One-token decode against a KV ring-buffer cache (B, T, KV, hd):
+    the token's k and v written at slot ``pos % T`` of new caches (the
+    inputs are left as they were), then grouped attention over the slots
+    ``_ring_valid`` admits. Returns (out (B, 1, d_model), cache_k,
+    cache_v). A sequence-sharded plan (``plan.seq_axes``) raises."""
+    if plan.seq_axes:
+        raise NotImplementedError(
+            "the sequence-sharded decode (a flash combine across cards) waits for the "
+            "mesh slice (ROADMAP queue 1)")
+    b = x1.shape[0]
+    smax = cache_k.shape[1]
+    q, k1, v1 = qkv_proj(x1, p, cfg, ax, None)
+    if cfg.use_rope and cfg.head_dim % 2 == 0:
+        at = torch.full((1,), pos, device=x1.device)
+        q = rope(q, at, cfg.rope_theta)
+        k1 = rope(k1, at, cfg.rope_theta)
+    slot = pos % smax
+    cache_k, cache_v = cache_k.clone(), cache_v.clone()
+    cache_k[:, slot] = k1[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v1[:, 0].to(cache_v.dtype)
+    valid = _ring_valid(pos, smax, cfg.sliding_window, x1.device)
+    o, _m, l = _grouped_attend(q, cache_k, cache_v, cfg, valid)
+    o = (o / l[..., None]).to(x1.dtype)
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.q_dim)
+    return _dense_of(o, p.wo), cache_k, cache_v
+
+
 # ---------------------------------------------------------------------------
-# embeddings
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+class Mlp(nn.Module):
+    """``wi``, ``wd`` with biases (``act == "gelu"``, the classic
+    two-matrix MLP), else the gated ``wg``, ``wu``, ``wd`` without."""
+
+    def __init__(self, cfg: ArchConfig, gen, d_ff: int, dtype, device):
+        super().__init__()
+        if cfg.act == "gelu":
+            self.wi = init_dense(gen, cfg.d_model, d_ff, True, dtype, device)
+            self.wd = init_dense(gen, d_ff, cfg.d_model, True, dtype, device)
+        else:
+            self.wg = init_dense(gen, cfg.d_model, d_ff, False, dtype, device)
+            self.wu = init_dense(gen, cfg.d_model, d_ff, False, dtype, device)
+            self.wd = init_dense(gen, d_ff, cfg.d_model, False, dtype, device)
+
+
+def init_mlp(gen, cfg: ArchConfig, d_ff: int | None = None, dtype=torch.bfloat16,
+             device=None) -> Mlp:
+    return Mlp(cfg, gen, d_ff or cfg.d_ff, dtype, device)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(x: torch.Tensor, p: Mlp, cfg: ArchConfig, ax: MeshAxes) -> torch.Tensor:
+    if cfg.act == "gelu":  # classic 2-matrix MLP (starcoder2, seamless)
+        return _dense_of(_gelu(_dense_of(x, p.wi)), p.wd)
+    gate_act = _gelu if cfg.act == "gelu_gated" else F.silu
+    h = gate_act(dense(x, p.wg.w)) * dense(x, p.wu.w)
+    return _dense_of(h, p.wd)
+
+
+# ---------------------------------------------------------------------------
+# embeddings & loss
 # ---------------------------------------------------------------------------
 
 
@@ -134,3 +395,10 @@ def unembed(x: torch.Tensor, embed_or_head: torch.Tensor, vocab: int) -> torch.T
     """Logits in x's dtype; a (vocab, d) weight is the tied embedding."""
     w = embed_or_head.to(x.dtype)
     return x @ (w.T if w.shape[0] == vocab else w)
+
+
+def xent_loss(logits: torch.Tensor, labels: torch.Tensor, ax: MeshAxes) -> torch.Tensor:
+    """Mean cross-entropy of (.., V) logits against integer labels, f32."""
+    lf = logits.to(torch.float32)
+    ll = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return torch.mean(torch.logsumexp(lf, dim=-1) - ll)

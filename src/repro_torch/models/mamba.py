@@ -28,9 +28,7 @@ f32}``.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
 
-import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -40,8 +38,9 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models import layers as L
 from repro_torch.models import stack
+from repro_torch.models.layers import TensorSpec
 from repro_torch.models.shardings import SINGLE, MeshAxes, ServePlan
-from repro_torch.models.transformer import chunked_xent
+from repro_torch.models.transformer import _on, chunked_xent
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -96,7 +95,8 @@ class MambaLM(nn.Module):
         return self.embed.device
 
 
-def init_lm(cfg: ArchConfig, seed: int = 0, *, device=None, dtype=torch.bfloat16) -> MambaLM:
+def init_lm(cfg: ArchConfig, seed: int | None = 0, *, device=None,
+            dtype=torch.bfloat16) -> MambaLM:
     return MambaLM(cfg, device=device, seed=seed, dtype=dtype)
 
 
@@ -224,12 +224,6 @@ def apply_mamba_layer(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE):
 # ---------------------------------------------------------------------------
 
 
-def _on(t, device) -> torch.Tensor:
-    """A batch entry (numpy array or tensor) as a tensor on ``device``."""
-    t = t if isinstance(t, torch.Tensor) else torch.from_numpy(np.asarray(t))
-    return t.to(device)
-
-
 def lm_loss(params: MambaLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGLE):
     """Mean next-token cross-entropy of ``batch`` (tokens, labels, and an
     optional loss_mask, each (B, S)): embedding, the layers with
@@ -245,13 +239,6 @@ def lm_loss(params: MambaLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGLE
     mask = batch.get("loss_mask")
     return chunked_xent(x, params.embed, _on(batch["labels"], x.device), cfg, ax,
                         None if mask is None else _on(mask, x.device))
-
-
-class TensorSpec(NamedTuple):
-    """Shape and dtype of one cache leaf (the reference's ShapeDtypeStruct)."""
-
-    shape: tuple[int, ...]
-    dtype: torch.dtype
 
 
 def cache_shape(cfg: ArchConfig, batch: int, cache_len: int = 0) -> dict[str, TensorSpec]:

@@ -6,8 +6,10 @@ an ``nn.ModuleList`` and walks it with a Python loop; the caches keep the
 reference's stacked layout (leading ``L``). ``scan_layers`` rematerializes
 each layer, as the reference's ``jax.checkpoint(policy=nothing_saveable)``
 body does: backward recomputes a layer from its input, so the saved
-activations are one residual per layer. The reference's two-level remat
-(``block``) is used only by the dense family and waits for it.
+activations are one residual per layer. With ``block`` it is the
+reference's two-level remat: each block of ``block`` layers keeps only
+its input, and while a block's backward recomputes it, each layer inside
+keeps only its own.
 """
 
 from __future__ import annotations
@@ -24,12 +26,30 @@ def stacked_init(init_fn: Callable[[], nn.Module], num: int) -> nn.ModuleList:
     return nn.ModuleList(init_fn() for _ in range(num))
 
 
-def scan_layers(body: Callable, x: torch.Tensor, layers: nn.ModuleList) -> torch.Tensor:
+def _remat(fn: Callable, *args):
+    """``fn(*args)``, keeping only ``args`` for backward (the bodies are
+    deterministic, so no RNG state is saved)."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def scan_layers(body: Callable, x: torch.Tensor, layers: nn.ModuleList, *,
+                block: int = 0) -> torch.Tensor:
     """x -> fold ``body(x, layer) -> x`` over the layers, each layer
-    keeping only its input for backward and recomputing the rest (the
-    body is deterministic, so no RNG state is saved)."""
+    rematerialized. ``block`` > 0 (taken only when it divides a larger
+    layer count, as in the reference) checkpoints each block of
+    ``block`` layers around the per-layer fold: the saved activations
+    shrink from one residual per layer to one per block, at the cost of
+    about one more forward pass."""
+    num = len(layers)
+    if block and num > block and num % block == 0:
+        def block_body(h, *blk):
+            return scan_layers(body, h, blk)
+
+        for g in range(0, num, block):
+            x = _remat(block_body, x, *layers[g : g + block])
+        return x
     for layer in layers:
-        x = checkpoint(body, x, layer, use_reentrant=False, preserve_rng_state=False)
+        x = _remat(body, x, layer)
     return x
 
 

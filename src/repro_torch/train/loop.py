@@ -11,7 +11,8 @@ stacked optimizer state and the step), so the byte stream, the group
 matrices and the checksums are the reference's for the same state;
 ``restore_latest`` decodes it through failed nodes and rebuilds a
 ``TrainState`` on the device. The reference's ``mesh`` (and
-``place_state``) waits for the mesh slice.
+``place_state``) waits for the mesh slice; a family other than ssm
+raises at construction (dense training is the next slice).
 """
 
 from __future__ import annotations
@@ -54,6 +55,10 @@ class Trainer:
     device: Any = None
 
     def __post_init__(self):
+        if self.cfg.family != "ssm":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the port trains the ssm family only; {self.cfg.family} "
+                "training waits for its slice (ROADMAP queue 1)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "a mesh waits for the mesh slice (ROADMAP queue 1); the port trains on one device")
@@ -88,7 +93,7 @@ class Trainer:
             return None
         tree, report = self.ckpt.restore(step)
         self.last_restore_report = report
-        params = convert.mamba_from_jax(tree.params, self.cfg, device=self.dev, trainable=True)
+        params = convert.from_jax(tree.params, self.cfg, device=self.dev, trainable=True)
         return ts.TrainState(params, convert.tree_to(tree.opt, self.dev),
                              tree.step.to(self.dev))
 

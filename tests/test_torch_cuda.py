@@ -5,6 +5,7 @@ device path against its CPU path, byte for byte; the selective scan (K8)
 against its plain version at rtol = atol = 2e-5 (y) and bit for bit
 (h_last), over both of its bodies, and its refusal of an operand that
 requires grad; one reduced falcon-mamba train step on the card against
+the CPU; a reduced starcoder2 f32 prefill and decode on the card against
 the CPU. Every test is marked
 ``cuda`` and skips without a CUDA device (the kernels are CUDA C++ and
 have no CPU mode). Imports nothing of JAX, so it runs where the port
@@ -280,8 +281,8 @@ def test_reduced_train_step_card_matches_cpu(card, monkeypatch):
     api = get_model(cfg)
     oc = opt.OptConfig(lr=1e-4, warmup_steps=1)
     cpu = api.init(cfg, 0, device="cpu", dtype=torch.float32).requires_grad_(True)
-    models = {"cpu": cpu, "cuda": convert.mamba_from_jax(convert.to_reference_tree(cpu), cfg,
-                                                         device=card, trainable=True)}
+    models = {"cpu": cpu, "cuda": convert.from_jax(convert.to_reference_tree(cpu), cfg,
+                                                   device=card, trainable=True)}
     batch = SyntheticPipeline(cfg, 32, 2, 0).batch_at(0)
     step = ts.make_train_step(cfg, api, SINGLE, oc)
     out = {}
@@ -300,3 +301,55 @@ def test_reduced_train_step_card_matches_cpu(card, monkeypatch):
         assert float((g - want).abs().max()) <= 1e-3 * float(want.abs().max())
     for p, want in zip(out["cuda"][2], out["cpu"][2]):
         torch.testing.assert_close(p, want, rtol=0, atol=1e-5)
+
+
+def _bf16_neighbours(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elements where two bf16 tensors hold adjacent bf16 values."""
+    return (a.view(torch.int16).int() - b.view(torch.int16).int()).abs() == 1
+
+
+@pytest.mark.cuda
+def test_reduced_dense_prefill_decode_card_matches_cpu(card, monkeypatch):
+    """The reduced starcoder2 (layernorm, biases, gelu, GQA, a 64-token
+    window) in float32, TF32 off, from the same weights on the card and
+    on the CPU: the prefill logits within rtol = atol = 1e-4, its bf16
+    caches too except for one-ulp neighbours (float32-sized differences
+    round k or v to the next bf16 value) in at most 1e-3 of the
+    elements; then two decode steps from the CPU's prefill cache cast to
+    float32, on both devices (every step of the decode float32), logits
+    and caches within rtol = atol = 1e-4. No kernel is launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config("starcoder2_15b").reduced()
+    api = get_model(cfg)
+    cpu = api.init(cfg, 0, device="cpu", dtype=torch.float32)
+    models = {"cpu": cpu, "cuda": convert.from_jax(convert.to_reference_tree(cpu), cfg,
+                                                   device=card)}
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64)))
+    _build.reset_launches()
+    out = {dev: api.prefill(m, {"tokens": tokens}, cfg, SINGLE, 128)
+           for dev, m in models.items()}
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0], rtol=1e-4, atol=1e-4)
+    for k in ("k", "v"):
+        got, want = out["cuda"][1][k].cpu(), out["cpu"][1][k]
+        bad = ~torch.isclose(got.float(), want.float(), rtol=1e-4, atol=1e-4)
+        flips = bad & _bf16_neighbours(got, want)
+        assert int(flips.sum()) <= 1e-3 * got.numel() and not (bad & ~flips).any()
+    f32 = {k: v.float() for k, v in out["cpu"][1].items()}
+    caches = {"cpu": f32, "cuda": {k: v.to(card) for k, v in f32.items()}}
+    nxt = out["cpu"][0].argmax(-1, keepdim=True)
+    for pos in (64, 65):
+        step = {}
+        for dev, m in models.items():
+            step[dev] = api.decode(m, nxt.to(m.device), caches[dev], pos, cfg, SINGLE, None)
+            caches[dev] = step[dev][1]
+        torch.testing.assert_close(step["cuda"][0].cpu(), step["cpu"][0], rtol=1e-4, atol=1e-4)
+        for k in ("k", "v"):
+            torch.testing.assert_close(step["cuda"][1][k].cpu(), step["cpu"][1][k], rtol=1e-4,
+                                       atol=1e-4)
+        nxt = step["cpu"][0].argmax(-1, keepdim=True)
+    assert sum(_build.LAUNCHES.values()) == 0

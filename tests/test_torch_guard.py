@@ -51,6 +51,10 @@ def test_every_module_imports_without_jax_or_repro():
                    "repro_torch.train.loop", "repro_torch.data", "repro_torch.data.pipeline",
                    "repro_torch.models.transformer", "repro_torch.launch.train"}
         assert slice_7 <= set(names), slice_7 - set(names)
+        slice_8 = {"repro_torch.configs." + arch for arch in (
+            "qwen2_72b", "mistral_large_123b", "starcoder2_15b", "command_r_35b",
+            "pixtral_12b")}
+        assert slice_8 <= set(names), slice_8 - set(names)
         print(len(names))
         """
     )
@@ -60,7 +64,7 @@ def test_every_module_imports_without_jax_or_repro():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 71  # every subpackage was walked
+    assert int(proc.stdout.strip()) >= 76  # every subpackage was walked
 
 
 def test_no_jax_or_repro_import_lines():
@@ -86,13 +90,14 @@ def _entry_points():
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.launch import serve, train
-    from repro_torch.models import mamba
+    from repro_torch.models import mamba, transformer
     from repro_torch.models.registry import get_model
     from repro_torch.train import optimizer, train_step
     from repro_torch.train.loop import LoopConfig, Trainer
 
     code = CoreCode(9, 6, 3)
     cfg = get_config("falcon_mamba_7b").reduced()
+    dense = get_config("starcoder2_15b").reduced()
     objs = np.zeros((3, 6, 16), dtype=np.uint8)
     return {
         "resolve_device": lambda: resolve_device(None),
@@ -116,19 +121,42 @@ def _entry_points():
         "trainer": lambda: Trainer(cfg, LoopConfig()),
         "launch_train": lambda: train.main(["--arch", "falcon_mamba_7b", "--reduced",
                                             "--steps", "1"]),
+        "transformer_lm": lambda: transformer.TransformerLM(dense),
+        "dense_init_cache": lambda: transformer.init_cache(dense, 2, 16),
+        "dense_prefill": lambda: get_model(dense).prefill(
+            get_model(dense).init(dense, 0), {"tokens": np.zeros((1, 4), np.int32)}, dense,
+            None, 16),
+        "launch_serve_dense": lambda: serve.main(["--arch", "starcoder2_15b", "--reduced"]),
     }
 
 
 @pytest.mark.parametrize(
     "name", ["resolve_device", "resolve_cuda", "codec", "coalescer", "fixer", "checkpointer",
              "gateway", "mamba_lm", "init_lm", "init_cache", "launch_serve", "device_batch",
-             "init_state", "trainer", "launch_train"]
+             "init_state", "trainer", "launch_train", "transformer_lm", "dense_init_cache",
+             "dense_prefill", "launch_serve_dense"]
 )
 def test_default_device_raises_without_cuda(name, monkeypatch):
     """No silent CPU fallback: the default device is the card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _entry_points()[name]()
+
+
+@pytest.mark.parametrize("arch", ["starcoder2_15b", "pixtral_12b"])
+def test_training_a_dense_arch_waits_for_its_slice(arch):
+    """``Trainer`` refuses any family but ssm when it is built, before it
+    touches a device or ``models.convert``; the launcher through it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    cfg = get_config(arch).reduced()
+    waits = "training waits for its slice \\(ROADMAP queue 1\\)"
+    with pytest.raises(NotImplementedError, match=waits):
+        Trainer(cfg, LoopConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match=waits):
+        train.main(["--arch", arch, "--reduced", "--steps", "1", "--device", "cpu"])
 
 
 def test_cpu_is_taken_only_when_asked():

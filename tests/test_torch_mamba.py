@@ -34,7 +34,7 @@ from repro.models.shardings import SINGLE as JSINGLE  # noqa: E402
 from repro.models.shardings import ServePlan as JServePlan  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import mamba  # noqa: E402
-from repro_torch.models.convert import mamba_from_jax  # noqa: E402
+from repro_torch.models.convert import from_jax  # noqa: E402
 from repro_torch.models.shardings import SINGLE  # noqa: E402
 
 CFG_J = jax_get_config("falcon_mamba_7b").reduced()
@@ -75,8 +75,8 @@ def runs(jax_params):
     out = {}
     for dtype in DTYPES:
         jp = _cast(jax_params, dtype)
-        model = mamba_from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu",
-                               dtype=torch.float32 if dtype == "float32" else None)
+        model = from_jax(jax.tree.map(np.asarray, jp), CFG, device="cpu",
+                         dtype=torch.float32 if dtype == "float32" else None)
         for s in LENGTHS:
             tokens = np.random.default_rng(s).integers(0, CFG.vocab_size, (2, s), dtype=np.int32)
             jlogits, jstate = jprefill(jp, jnp.asarray(tokens))
@@ -121,7 +121,7 @@ def test_reduced_config_is_the_references():
 
 def test_convert_is_exact(jax_params):
     """Every leaf, bf16 ones included, arrives bit for bit."""
-    model = mamba_from_jax(jax.tree.map(np.asarray, jax_params), CFG, device="cpu")
+    model = from_jax(jax.tree.map(np.asarray, jax_params), CFG, device="cpu")
     sd = model.state_dict()
     flat = jax.tree_util.tree_flatten_with_path(jax_params)[0]
     assert len(sd) == (len(flat) - 2) * CFG.num_layers + 2

@@ -2,10 +2,11 @@
 continuous-batching loop, the SlotManager, cache sizing, greedy sampling
 and the config registry.
 
-The serve loop runs the reduced falcon-mamba on the same float32 weights
-(the JAX package's ``init_lm``, cast, carried across by
-``models/convert.py``) and the same prompts (drawn as the JAX launcher
-draws them): every request must generate the same tokens. The
+The serve loop runs the reduced falcon-mamba, and the reduced starcoder2
+(the dense family), on the same float32 weights (the JAX package's
+``init_lm``, cast, carried across by ``models/convert.py``) and the same
+prompts (drawn as the JAX launcher draws them): every request must
+generate the same tokens. The
 reference's loop lives inside ``repro.launch.serve.main``; ``_jax_serve``
 below is that loop, line for line, on the JAX package's own parts.
 """
@@ -33,7 +34,8 @@ from repro.serve import kvcache as jkv  # noqa: E402
 from repro.serve.serve_step import greedy_sample as jax_greedy  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch.serve import serve_requests  # noqa: E402
-from repro_torch.models.convert import mamba_from_jax  # noqa: E402
+from repro_torch.models import convert  # noqa: E402
+from repro_torch.models.convert import from_jax  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serve import kvcache  # noqa: E402
 from repro_torch.serve.serve_step import greedy_sample  # noqa: E402
@@ -44,14 +46,14 @@ CFG = configs.get_config("falcon_mamba_7b").reduced()
 REQUESTS, BATCH, PROMPT, MAX_NEW, CACHE_LEN = 4, 2, 8, 4, 128
 
 
-def _jax_serve(params, prompts):
+def _jax_serve(params, prompts, cfg_j=CFG_J):
     """src/repro/launch/serve.py's loop on the JAX package's parts."""
-    api = jax_get_model(CFG_J)
+    api = jax_get_model(cfg_j)
     mgr = jkv.SlotManager(batch=BATCH, cache_len=CACHE_LEN)
     for rid, prompt in enumerate(prompts):
         mgr.submit(jkv.Request(rid, prompt, MAX_NEW))
-    cache = api.init_cache(CFG_J, BATCH, CACHE_LEN)
-    decode = jax.jit(lambda p, t, c, pos: api.decode(p, t, c, pos, CFG_J, JSINGLE,
+    cache = api.init_cache(cfg_j, BATCH, CACHE_LEN)
+    decode = jax.jit(lambda p, t, c, pos: api.decode(p, t, c, pos, cfg_j, JSINGLE,
                                                      JServePlan()))
 
     def prefill_into_slot(slot, req, cache):
@@ -94,8 +96,30 @@ def test_serve_loop_generates_the_references_tokens(one_thread):
         for rid in range(REQUESTS)
     ]
     want = [(r.rid, r.generated) for r in _jax_serve(params, prompts)]
-    model = mamba_from_jax(jax.tree.map(np.asarray, params), CFG, device="cpu")
+    model = from_jax(jax.tree.map(np.asarray, params), CFG, device="cpu")
     got = serve_requests(get_model(CFG), model, CFG, prompts, batch=BATCH,
+                         max_new=MAX_NEW, cache_len=CACHE_LEN)
+    assert [(r.rid, r.generated) for r in got] == want
+    assert len(want) == REQUESTS and all(len(g) == MAX_NEW for _, g in want)
+
+
+def test_serve_loop_generates_the_references_tokens_dense(one_thread):
+    """The same loop on the reduced starcoder2 (layernorm, QKV and MLP
+    biases, gelu, GQA, a 64-token sliding window), float32 weights, its
+    bf16 KV cache written slot by slot at the loop's shared position."""
+    cfg_j = jconfigs.get_config("starcoder2_15b").reduced()
+    cfg = configs.get_config("starcoder2_15b").reduced()
+    rng = jax.random.PRNGKey(0)
+    api_j = jax_get_model(cfg_j)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32), api_j.init(cfg_j, rng))
+    prompts = [
+        np.asarray(jax.random.randint(jax.random.fold_in(rng, rid), (PROMPT,), 0,
+                                      cfg_j.vocab_size), np.int32)
+        for rid in range(REQUESTS)
+    ]
+    want = [(r.rid, r.generated) for r in _jax_serve(params, prompts, cfg_j)]
+    model = convert.from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    got = serve_requests(get_model(cfg), model, cfg, prompts, batch=BATCH,
                          max_new=MAX_NEW, cache_len=CACHE_LEN)
     assert [(r.rid, r.generated) for r in got] == want
     assert len(want) == REQUESTS and all(len(g) == MAX_NEW for _, g in want)
@@ -153,19 +177,23 @@ def test_greedy_sample_takes_the_first_maximum(seed):
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_config_registry(arch):
-    """The reference's ids; the ported family resolves to the reference's
-    config and trains through its family's ``lm_loss`` as the reference
-    does, the others raise until their slice."""
+    """The reference's ids; the ported families (ssm, dense, vlm) resolve
+    to the reference's config and family and train through their
+    family's ``lm_loss`` as the reference does, the others raise until
+    their slice."""
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     want = jconfigs.get_config(arch)
     if arch in configs.PORTED:
+        from repro_torch.models import mamba, transformer
+
         cfg = configs.get_config(arch.replace("_", "-"))
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
-        assert get_model(cfg).family == want.family
-        from repro_torch.models import mamba
-
-        assert get_model(cfg).loss is mamba.lm_loss
+        assert get_model(cfg).family == jax_get_model(want).family
+        family_module = mamba if want.family == "ssm" else transformer
+        assert get_model(cfg).loss is family_module.lm_loss
         assert jax_get_model(want).loss.__name__ == "lm_loss"
+        assert jax_get_model(want).loss.__module__.rsplit(".", 1)[-1] == (
+            family_module.__name__.rsplit(".", 1)[-1])
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             configs.get_config(arch)
@@ -179,6 +207,18 @@ def test_launcher_serves_on_the_cpu_when_asked():
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "falcon_mamba_7b",
+         "--reduced", "--device", "cpu", "--requests", "3", "--batch", "2",
+         "--prompt-len", "6", "--max-new", "3"],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "served 3 requests, 9 tokens" in proc.stdout
+
+
+def test_launcher_serves_a_dense_arch_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2_72b",
          "--reduced", "--device", "cpu", "--requests", "3", "--batch", "2",
          "--prompt-len", "6", "--max-new", "3"],
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300,

@@ -98,7 +98,7 @@ def test_lm_loss_and_grads_match_reference(params_f32):
     batch = JPipeline(CFG_J, 32, 2, 0).batch_at(0)
     ref_loss, ref_grads = jax.jit(jax.value_and_grad(
         lambda p, b: jmamba.lm_loss(p, b, CFG_J, JSINGLE)))(params_f32, batch)
-    model = convert.mamba_from_jax(params_f32, CFG, device="cpu", trainable=True)
+    model = convert.from_jax(params_f32, CFG, device="cpu", trainable=True)
     loss = mamba.lm_loss(model, batch, CFG)
     grads = torch.autograd.grad(loss, list(model.parameters()))
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-4, atol=1e-4)
@@ -117,7 +117,7 @@ def test_eval_step_runs_k8_and_matches_the_train_loss(params_f32, monkeypatch):
     monkeypatch.setattr(mamba, "selective_scan", lambda *a, **k: calls.append(1) or real(*a, **k))
     batch = JPipeline(CFG_J, 32, 2, 0).batch_at(1)
     ref = float(jmamba.lm_loss(params_f32, batch, CFG_J, JSINGLE))
-    model = convert.mamba_from_jax(params_f32, CFG, device="cpu", trainable=True)
+    model = convert.from_jax(params_f32, CFG, device="cpu", trainable=True)
     state = ts.TrainState(model, None, torch.zeros((), dtype=torch.int32))
     evaluated = float(ts.make_eval_step(CFG, get_model(CFG), SINGLE)(state, batch))
     k8_calls = len(calls)
@@ -171,7 +171,7 @@ def _twin_states(params_f32, oc_kw):
     jp = jax.tree.map(jnp.asarray, params_f32)
     jstate = jts.TrainState(jp, jopt.init_opt_state(jp, jopt.OptConfig(**oc_kw)),
                             jnp.zeros((), jnp.int32))
-    model = convert.mamba_from_jax(params_f32, CFG, device="cpu", trainable=True)
+    model = convert.from_jax(params_f32, CFG, device="cpu", trainable=True)
     opt_state = convert.tree_to(jax.tree.map(np.asarray, jstate.opt), "cpu")
     return jstate, ts.TrainState(model, opt_state, torch.zeros((), dtype=torch.int32))
 
@@ -302,7 +302,7 @@ def test_save_matches_reference_trainer():
     tr = Trainer(CFG, LoopConfig(steps=1, seq_len=32, global_batch=2, num_nodes=20),
                  opt.OptConfig(**OPT), device="cpu")
     host = jax.tree.map(np.asarray, jstate)
-    state = ts.TrainState(convert.mamba_from_jax(host.params, CFG, device="cpu", trainable=True),
+    state = ts.TrainState(convert.from_jax(host.params, CFG, device="cpu", trainable=True),
                           convert.tree_to(host.opt, "cpu"), convert.to_tensor(host.step, "cpu"))
     man = tr.save(state)
     assert man.total_bytes == jman.total_bytes and man.group_ids == jman.group_ids

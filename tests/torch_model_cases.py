@@ -1,0 +1,135 @@
+"""Cases shared by tests/test_torch_models.py,
+tests/test_torch_model_grads.py and tests/test_torch_loss_paths.py: the
+ported ids at ``reduced()``, the numpy-seeded batch for both packages,
+the reference's ``init`` drawn once per process, the loss and gradient
+runs of both packages, and the checks and tolerances those files state."""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro import configs as jconfigs
+from repro.models.registry import get_model as jax_get_model
+from repro.models.shardings import SINGLE as JSINGLE
+from repro_torch import configs
+from repro_torch.models import convert
+from repro_torch.models.registry import get_model
+from repro_torch.models.shardings import SINGLE
+
+PORTED_IDS = ("falcon_mamba_7b", "qwen2_72b", "mistral_large_123b", "starcoder2_15b",
+              "command_r_35b", "pixtral_12b")
+UNPORTED_IDS = ("recurrentgemma_9b", "granite_moe_3b_a800m", "olmoe_1b_7b",
+                "seamless_m4t_large_v2")
+B, S, CACHE_LEN = 2, 64, 128
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_REL = {"ssm": 4e-2, "dense": 2e-2, "vlm": 2e-2}
+FLIP_SHARE = 1e-3
+
+
+def cfgs(case: str):
+    """(port config, reference config) of a case: ``arch`` at
+    ``reduced()``, or ``mistral_large_123b/8L-block2``."""
+    arch, _, variant = case.partition("/")
+    kw = dict(num_layers=8, remat_block=2) if variant else {}
+    return configs.get_config(arch).reduced(**kw), jconfigs.get_config(arch).reduced(**kw)
+
+
+def batch(cfg, seed: int = 0):
+    """(port batch, reference batch) from one numpy generator."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
+    port = {"tokens": torch.from_numpy(tokens),
+            "labels": torch.from_numpy(np.roll(tokens, -1, axis=1))}
+    if cfg.family == "vlm":
+        pe = rng.standard_normal((B, cfg.num_stub_tokens, cfg.d_model)).astype(np.float32)
+        port["patch_embed"] = torch.from_numpy(pe).to(torch.bfloat16)
+    ref = {k: jnp.asarray(v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy(),
+                          jnp.bfloat16 if v.dtype == torch.bfloat16 else None)
+           for k, v in port.items()}
+    return port, ref
+
+
+@functools.lru_cache(maxsize=None)
+def ref_init(case: str):
+    """The reference's ``init`` of a case, drawn once for the module."""
+    cfg_j = cfgs(case)[1]
+    return jax_get_model(cfg_j).init(cfg_j, jax.random.PRNGKey(0))
+
+
+def ref_params(case: str, dtype: str):
+    p = ref_init(case)
+    if dtype == "float32":
+        p = jax.tree.map(lambda a: a.astype(jnp.float32), p)
+    return p
+
+
+def to_np(t) -> np.ndarray:
+    return t.detach().float().numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def bf16_neighbours(got: torch.Tensor, want) -> np.ndarray:
+    """Elements where two bf16 tensors are adjacent bf16 values."""
+    g = got.to(torch.bfloat16).view(torch.int16).int()
+    w = torch.from_numpy(np.asarray(want, np.float32)).to(torch.bfloat16).view(torch.int16).int()
+    return ((g - w).abs() == 1).numpy()
+
+
+def assert_f32_close(got, want, *, bf16_leaf: bool = False):
+    """rtol = atol = 1e-4; a bf16 leaf may also hold one-ulp neighbours
+    of the reference's values, in at most ``FLIP_SHARE`` of its elements."""
+    g, w = to_np(got), to_np(want)
+    assert g.shape == w.shape
+    bad = np.abs(g - w) > F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(w)
+    if bf16_leaf:
+        flips = bad & bf16_neighbours(got, want)
+        assert flips.sum() <= FLIP_SHARE * g.size, (int(flips.sum()), g.size)
+        bad &= ~flips
+    assert not bad.any(), (int(bad.sum()), float(np.abs(g - w).max()))
+
+
+def assert_bf16_close(got, want, rel: float = BF16_REL["dense"]):
+    g, w = to_np(got), to_np(want)
+    assert g.shape == w.shape and np.isfinite(g).all()
+    assert np.abs(g - w).max() <= rel * np.abs(w).max(), np.abs(g - w).max()
+
+
+# -- loss and gradients -------------------------------------------------------
+
+
+def loss_and_grads(case: str):
+    """(port loss, ref loss, port gradient tree, ref gradient tree) of a
+    case in float32."""
+    cfg, cfg_j = cfgs(case)
+    p = ref_params(case, "float32")
+    port_batch, ref_batch = batch(cfg)
+    api_j = jax_get_model(cfg_j)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: api_j.loss(p, b, cfg_j, JSINGLE)))(p, ref_batch)
+    model = convert.from_jax(jax.tree.map(np.asarray, p), cfg, device="cpu", trainable=True)
+    loss = get_model(cfg).loss(model, port_batch, cfg, SINGLE)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return float(loss.detach()), float(jloss), convert.stacked_tree(model, grads), jgrads
+
+
+def assert_loss_matches(run):
+    loss, jloss, _, _ = run
+    assert np.isfinite(loss)
+    np.testing.assert_allclose(loss, jloss, **F32_TOL)
+
+
+def assert_every_gradient_leaf_matches(run):
+    """Each of the reference's gradient leaves within 1e-3 of its max
+    |ref|, and no port leaf left over."""
+    _, _, grads, jgrads = run
+    flat = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(flat) == len(jax.tree.leaves(grads))
+    for path, ref in flat:
+        port = grads
+        for k in path:
+            port = port[k.key]
+        ref = np.asarray(ref, np.float32)
+        err = np.abs(port.float().numpy() - ref).max()
+        assert err <= 1e-3 * np.abs(ref).max() + 1e-12, (jax.tree_util.keystr(path), err)

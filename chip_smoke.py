@@ -87,10 +87,12 @@ Phases, in order; any failure raises and exits non-zero:
    verified; save, restore and repair wall times, bytes fetched, and
    one group's encode under the profiler;
 8. the training path (TF32 is off for every phase after the build): (a) one
-   ``make_train_step`` of the reduced falcon-mamba (2 layers) in float32
-   on the card against the CPU from the same weights (loss within rtol
-   = atol = 1e-4, each gradient leaf within 1e-3 of its max |CPU|, the
-   parameters after the update within 1e-5, K8 not launched), the
+   ``make_train_step`` each of the reduced falcon-mamba, qwen2 and olmoe
+   (2 layers each) in float32 on the card against the CPU from the
+   same weights (loss within rtol = atol = 1e-4, each gradient leaf
+   within 1e-3 of its max |CPU|, the parameters after the update within
+   1e-5, no kernel launched), the reduced qwen2 ``Trainer``'s kill ->
+   degraded restore (bit-equal) -> repair -> resume on the card, the
    training scan ``_chunk_scan`` against K8's forward at (1, 128, 8192,
    16) (y and h_last within 2e-5), and K8 refusing an operand that
    requires grad; (b) falcon-mamba-7b at full width cut to 2 of its 64
@@ -102,7 +104,13 @@ Phases, in order; any failure raises and exits non-zero:
    profiler (busy share, top device ops); two nodes of group 0 failed,
    ``restore_latest`` bit-equal to the saved state, ``ckpt.repair``
    recovered, and steps 7-8 resumed from the restored state (step-7
-   loss within 1e-3 relative of the in-memory one); K8 never launched.
+   loss within 1e-3 relative of the in-memory one); K8 never launched;
+   (c) starcoder2-15b at full width cut to 8 of its 40 layers with
+   ``remat_block=2`` (the two-level remat at scale), bf16 weights from
+   ``--seed``: ``Trainer.run`` for 6 steps at batch 8 x seq 256 (the
+   loop's end-of-run save not made: phase 8(b) measures the save), each
+   step's wall, loss and grad norm, the median step wall, tokens/s and
+   peak memory, step 7 under the profiler; no kernel launched.
 
 9. the dense and vlm families (TF32 off): (a) each of qwen2-72b,
    mistral-large-123b (at 8 layers with ``remat_block=2``, the
@@ -123,6 +131,15 @@ Phases, in order; any failure raises and exits non-zero:
    finite, every request finished, every token in the vocabulary. No
    hand-written kernel is on this path: phase 9 asserts that it
    launched none.
+10. the moe family (TF32 off): (a) olmoe-1b-7b and granite-moe-3b-a800m
+   at ``reduced()`` card vs CPU as phase 9(a) holds the dense ids (no
+   decode-after-prefill oracle: prefill and decode route with other
+   expert capacities); (b) olmoe-1b-7b at full width and depth (16
+   layers, 64 experts, top 8, 13.8 GB of bf16 weights drawn from
+   ``--seed`` on the card) as phase 9(b) serves starcoder2: a profiled
+   2,048-token prefill, the 32,768-token prefill (capacity 5,120 a
+   expert), the default serve and a profiled window of it. No kernel
+   launched.
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
 check, no result line). ``--scan-only`` builds, prints ptxas's register
@@ -130,7 +147,7 @@ and spill report for each K8 body, runs phase 6(a), times K8 at S in
 {1, 2, 4, ..., 128} for B in {1, 4}, and stops (no result line).
 ``--storage-only`` builds, runs phase 7 and stops (no result line).
 ``--train-only`` builds, runs phase 8 and stops (no result line);
-``--dense-only`` the same for phase 9. The
+``--dense-only`` the same for phase 9, ``--moe-only`` for phase 10. The
 script imports ``repro_torch`` from the ``src/`` beside it, so a copy of
 it placed in another checkout times that checkout's kernels.
 
@@ -1361,30 +1378,36 @@ def _grads_close(torch, got, want, tag: str) -> float:
 
 
 
-def train_card_vs_cpu(np, torch, seed: int) -> None:
-    """Phase 8(a): the training path against the CPU and against K8. One
-    ``make_train_step`` of the reduced falcon-mamba (2 layers) in float32
-    (TF32 off) from the same weights on the card and on the CPU (carried
-    to the card through ``models.convert`` both ways): loss within
-    rtol = atol = 1e-4, each gradient leaf within 1e-3 of its max
-    |CPU|, the parameters after the update within 1e-5 (a tenth of the
-    step's learning rate, 1e-4); K8 not launched by it. Then the
-    training scan ``_chunk_scan`` (and its output einsum) on the card
-    against K8's forward at the prefill chunk (1, 128, 8192, 16): y and
-    h_last within rtol = atol = 2e-5. Then K8 given an operand that
-    requires grad raises, launching nothing."""
+# phase 8(a)'s train steps card vs CPU, each at reduced(num_layers=2)
+TRAIN_TWINS = ("falcon_mamba_7b", "qwen2_72b", "olmoe_1b_7b")
+
+
+def train_step_card_vs_cpu(np, torch, seed: int, arch: str) -> None:
+    """One ``make_train_step`` of ``arch`` at ``reduced(num_layers=2)`` in
+    float32 (TF32 off) from the same weights on the card and on the CPU
+    (carried to the card through ``models.convert`` both ways): loss
+    within rtol = atol = 1e-4, each gradient leaf within 1e-3 of its max
+    |CPU|, the card's parameters after the update within 1e-5 (a tenth
+    of the step's learning rate, 1e-4) of the CPU's step, and within
+    1e-5 of the CPU's AdamW applied to the gradients the card's step
+    passed it; no kernel launched.
+
+    AdamW's first step moves an element by lr * g / (|g| + 1e-8),
+    normalized per element: an element whose gradient is small beside
+    its leaf's largest keeps the leaf's absolute rounding difference,
+    and moves by a fraction of lr where the two devices' sums differ in
+    their last bits. The worst element is logged, with its gradient on
+    both devices."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.kernels import _build
-    from repro_torch.kernels.selective_scan import selective_scan
     from repro_torch.models import convert
-    from repro_torch.models.mamba import _chunk_scan
     from repro_torch.models.registry import get_model
     from repro_torch.models.shardings import SINGLE
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
 
-    cfg = get_config("falcon_mamba_7b").reduced(num_layers=2)
+    cfg = get_config(arch).reduced(num_layers=2)
     api = get_model(cfg)
     oc = opt.OptConfig(lr=1e-4, warmup_steps=1)
     cpu = api.init(cfg, seed, device="cpu", dtype=torch.float32).requires_grad_(True)
@@ -1393,30 +1416,122 @@ def train_card_vs_cpu(np, torch, seed: int) -> None:
                                                    device="cuda", trainable=True)}
     batch = SyntheticPipeline(cfg, 32, 2, seed).batch_at(0)
     step = ts.make_train_step(cfg, api, SINGLE, oc)
-    out = {}
+    before = convert.stacked_tree(cpu, [p.detach().clone() for p in cpu.parameters()])
+    out, passed = {}, {}
+    real_update = opt.adamw_update_
+
+    def spy(grads, state, params, c):  # the gradients the step hands AdamW
+        passed[params_dev] = convert.tree_to(grads, "cpu")
+        return real_update(grads, state, params, c)
+
     _build.reset_launches()
-    for dev, model in models.items():
-        loss = api.loss(model, batch, cfg, SINGLE)
-        grads = torch.autograd.grad(loss, list(model.parameters()))
-        state = ts.TrainState(model, opt.init_opt_state(convert.stacked_tree(model), oc),
-                              torch.zeros((), dtype=torch.int32, device=model.device))
-        state, metrics = step(state, batch)
-        out[dev] = (float(metrics["loss"]), [g.cpu() for g in grads],
-                    [p.detach().cpu() for p in state.params.parameters()])
-    k8 = _build.LAUNCHES["selective_scan"]
+    opt.adamw_update_ = spy
+    try:
+        for params_dev, model in models.items():
+            loss = api.loss(model, batch, cfg, SINGLE)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            state = ts.TrainState(model, opt.init_opt_state(convert.stacked_tree(model), oc),
+                                  torch.zeros((), dtype=torch.int32, device=model.device))
+            state, metrics = step(state, batch)
+            out[params_dev] = (float(metrics["loss"]), [g.cpu() for g in grads],
+                               convert.to_reference_tree(state.params))
+    finally:
+        opt.adamw_update_ = real_update
+    launched = {name: n for name, n in _build.LAUNCHES.items() if n}
     loss_err = abs(out["cuda"][0] - out["cpu"][0])
-    grad_err = _grads_close(torch, out["cuda"][1], out["cpu"][1], "phase 8(a)")
-    param_err = float(torch.stack([(p - w).abs().max()
-                                   for p, w in zip(out["cuda"][2], out["cpu"][2])]).max())
-    log(f"phase 8(a) reduced falcon-mamba f32 train step, card vs CPU: loss {out['cuda'][0]} "
-        f"vs {out['cpu'][0]} (|diff| {loss_err}, tolerance 1e-4 + 1e-4 rel); gradient leaves "
-        f"max |diff| / max |CPU| {grad_err} (tolerance 1e-3); params after the update max "
-        f"|diff| {param_err} (tolerance 1e-5); K8 launches {k8}")
-    if not (loss_err <= 1e-4 + 1e-4 * abs(out["cpu"][0]) and param_err <= 1e-5):
-        raise AssertionError("phase 8(a): the card's train step differs from the CPU's")
-    if k8:
-        raise AssertionError(f"phase 8(a): the train step launched K8 {k8} times")
-    del models, cpu, state
+    grad_err = _grads_close(torch, out["cuda"][1], out["cpu"][1], f"phase 8(a) {arch}")
+    # the CPU's AdamW on the card's gradients: the card's own arithmetic
+    own, _, _ = opt.adamw_update(passed["cuda"], opt.init_opt_state(before, oc), before, oc)
+    card, ref, g = (opt.tree_leaves(t) for t in (out["cuda"][2], out["cpu"][2], passed["cpu"]))
+    own = opt.tree_leaves(own)
+    param_err = max(float((a - b).abs().max()) for a, b in zip(card, ref))
+    own_err = max(float((a - b).abs().max()) for a, b in zip(card, own))
+    leaf = max(range(len(card)), key=lambda i: float((card[i] - ref[i]).abs().max()))
+    at = int((card[leaf] - ref[leaf]).abs().argmax())
+    g_card = opt.tree_leaves(passed["cuda"])[leaf].reshape(-1)[at]
+    log(f"phase 8(a) reduced {arch} ({cfg.num_layers} layers) f32 train step, card vs CPU: "
+        f"loss {out['cuda'][0]} vs {out['cpu'][0]} (|diff| {loss_err}, tolerance 1e-4 + 1e-4 "
+        f"rel); gradient leaves max |diff| / max |CPU| {grad_err} (tolerance 1e-3); the card's "
+        f"update against the CPU's AdamW on the card's gradients {own_err} (tolerance 1e-5); "
+        f"params after the update max |diff| {param_err} (tolerance 1e-5), at an element "
+        f"whose gradient "
+        f"is {float(g[leaf].reshape(-1)[at])} on the CPU and {float(g_card)} on the card (its "
+        f"leaf's max |CPU| {float(g[leaf].abs().max())}); kernel launches {launched or 'none'}")
+    if not (loss_err <= 1e-4 + 1e-4 * abs(out["cpu"][0]) and own_err <= 1e-5
+            and param_err <= 1e-5):
+        raise AssertionError(f"phase 8(a): {arch}'s train step on the card differs from the "
+                             f"CPU's")
+    if launched:
+        raise AssertionError(f"phase 8(a): {arch}'s train step launched {launched}")
+
+
+def dense_trainer_restores(np, torch, seed: int) -> None:
+    """Phase 8(a): the JAX package's own training case on the card, the
+    reduced qwen2 cut to 2 layers (``Trainer``, batch 2 x seq 32, CORE
+    checkpoints at steps 3 and 6 over 20 nodes): two nodes failed,
+    ``restore_latest`` bit-equal to the state in memory, ``ckpt.repair``
+    recovered, and steps 7-8 resumed from the restored state give the
+    in-memory state's losses within 1e-3 relative (as phase 8(b) holds
+    them)."""
+    from repro_torch.checkpoint import partition
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    cfg = get_config("qwen2_72b").reduced(num_layers=2)
+    lc = LoopConfig(steps=6, ckpt_every=3, log_every=100, seq_len=32, global_batch=2,
+                    seed=seed, num_nodes=20)
+    tr = Trainer(cfg, lc, opt.OptConfig(lr=1e-3, warmup_steps=2, decay_steps=10),
+                 device="cuda")
+    state = tr.run()
+
+    def leaves(st):
+        return partition.flatten(ts.TrainState(convert.to_reference_tree(st.params), st.opt,
+                                               st.step))[0]
+
+    losses = [m["loss"] for m in tr.metrics_log]
+    tr.store.fail_nodes([0, 1])
+    restored = tr.restore_latest()
+    saved, back = leaves(state), leaves(restored)
+    equal = len(saved) == len(back) and all(_bits_equal(torch, a, b)
+                                            for a, b in zip(saved, back))
+    fetched = tr.last_restore_report.blocks_fetched
+    tr.store.heal_node(0)
+    tr.store.heal_node(1)
+    rep = tr.ckpt.repair(6)
+    tr.run(state=restored, until=8)
+    resumed = [m["loss"] for m in tr.metrics_log[6:]]
+    tr.run(state=state, until=8)
+    in_memory = [m["loss"] for m in tr.metrics_log[8:]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, in_memory))
+    log(f"phase 8(a) reduced qwen2 Trainer on the card: losses {losses}; nodes 0, 1 down: "
+        f"{len(saved)} leaves restored bit-equal {equal} ({fetched} blocks fetched); repair "
+        f"recovered {rep.recovered}; steps 7-8 resumed {resumed} vs in memory {in_memory} "
+        f"(largest relative difference {rel}, tolerance 1e-3)")
+    if not (equal and fetched > 0 and rep.recovered and rel <= 1e-3
+            and all(np.isfinite(losses + resumed))):
+        raise AssertionError("phase 8(a): the reduced qwen2 Trainer's restore or resume failed")
+    del tr, state, restored
+
+
+def train_card_vs_cpu(np, torch, seed: int) -> None:
+    """Phase 8(a): the training path against the CPU and against K8. One
+    train step each of the reduced falcon-mamba, qwen2 and olmoe card vs
+    CPU (``train_step_card_vs_cpu``); the reduced qwen2 ``Trainer``'s
+    kill -> degraded restore -> repair -> resume on the card; then the
+    training scan ``_chunk_scan`` (and its output einsum) on the card
+    against K8's forward at the prefill chunk (1, 128, 8192, 16): y and
+    h_last within rtol = atol = 2e-5. Then K8 given an operand that
+    requires grad raises, launching nothing."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.models.mamba import _chunk_scan
+
+    for arch in TRAIN_TWINS:
+        train_step_card_vs_cpu(np, torch, seed, arch)
+    dense_trainer_restores(np, torch, seed)
 
     da, dbu, cm, h0 = scan_inputs(torch, 1, 128, 8192, 16, seed)
     with torch.no_grad():
@@ -1569,6 +1684,88 @@ def train_full_width(np, torch, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def train_dense_full_width(np, torch, seed: int) -> None:
+    """Phase 8(c): starcoder2-15b at full width cut to 8 of its 40
+    layers, ``remat_block=2`` (four blocks of two: the two-level remat),
+    trained by ``Trainer.run`` for 6 steps at the launcher's defaults
+    (global batch 8, seq 256, lr 3e-4 with one warmup step, bf16 weights
+    from the seed). ``ckpt_every`` lies beyond the run, and the save the
+    loop makes at its last step is not made (``save`` records the step):
+    the state is 44 GB, and phase 8(b) measures the CORE save. Each
+    step's wall, loss and grad norm, the median step wall, tokens/s and
+    peak memory; step 7 under the profiler. No kernel is launched."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    class UnsavedTrainer(Trainer):
+        def save(self, state):
+            self.unsaved.append(int(state.step))
+            return argparse.Namespace(group_ids=(), total_bytes=0, save_seconds=0.0)
+
+    full = get_config("starcoder2_15b")
+    cfg = dataclasses.replace(full, num_layers=8, remat_block=2)
+    steps = 6
+    lc = LoopConfig(steps=steps, ckpt_every=steps + 1, log_every=1, seq_len=256,
+                    global_batch=8, seed=seed, num_nodes=100)
+    oc = opt.OptConfig(lr=3e-4, warmup_steps=min(20, steps // 10 + 1), decay_steps=steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = UnsavedTrainer(cfg, lc, oc, device="cuda")
+    tr.unsaved = []
+    t0 = time.perf_counter()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    n_params, n_bytes, w_params, w_bytes = _param_counts(state.params)
+    tokens = lc.global_batch * lc.seq_len
+    log(f"phase 8(c) starcoder2-15b d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.num_layers} of {full.num_layers} layers, remat_block "
+        f"{cfg.remat_block}: {n_params} parameters, {n_bytes} bytes ({w_bytes} of bf16 weights), "
+        f"f32 m and v {8 * n_params} bytes, state built on the card in "
+        f"{time.perf_counter() - t0:.3f} s; batch {lc.global_batch} x seq {lc.seq_len} = "
+        f"{tokens} tokens a step")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = tr.run(state)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for rec in tr.metrics_log:
+        log(f"phase 8(c) step {rec['step']}: wall {rec['sec']:.6f} s, loss {rec['loss']:.6f}, "
+            f"grad norm {rec['grad_norm']:.6f}")
+    med = statistics.median([rec["sec"] for rec in tr.metrics_log][1:])
+    # 6 x parameters x tokens, and the two remat levels' forwards again
+    flop = (6 + 2 * 2) * (n_params - cfg.vocab_size * cfg.d_model) * tokens
+    log(f"phase 8(c) train: median step wall (steps 2-{steps}) {med:.6f} s, "
+        f"{tokens / med:.3f} tokens/s; max_memory_allocated {peak} bytes; Trainer.run "
+        f"{run_s:.3f} s; saves made at steps {tr.unsaved} were not; about {flop} matmul flop a "
+        f"step ({flop / BF16_FLOPS_PER_S:.6f} s at the bf16 peak)")
+    losses = [rec["loss"] for rec in tr.metrics_log]
+    if len(losses) != steps or not all(np.isfinite(losses)) or int(state.step) != steps:
+        raise AssertionError(f"phase 8(c): losses {losses}, step {int(state.step)}")
+    batch = tr.pipeline.device_batch(steps, tr.dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = tr.step_fn(state, batch)
+        loss = float(metrics["loss"])
+        prof_s = time.perf_counter() - t0
+    device_breakdown(prof, f"phase 8(c) train step 7 (profiled, loss {loss:.6f})", prof_s,
+                     top=12)
+    launched = {name: n for name, n in _build.LAUNCHES.items() if n}
+    log(f"phase 8(c) kernel launches: {launched or 'none'}")
+    if launched or not np.isfinite(loss):
+        raise AssertionError(f"phase 8(c): launches {launched}, step-7 loss {loss}")
+    del prof, state, tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def train_paths(np, torch, seed: int) -> None:
     """Phase 8: the training path on the card."""
     t0 = time.perf_counter()
@@ -1576,6 +1773,8 @@ def train_paths(np, torch, seed: int) -> None:
     log(f"phase 8(a) done in {time.perf_counter() - t0:.1f} s")
     train_full_width(np, torch, seed)
     log(f"phase 8(b) done in {time.perf_counter() - t0:.1f} s")
+    train_dense_full_width(np, torch, seed)
+    log(f"phase 8(c) done in {time.perf_counter() - t0:.1f} s")
 
 
 DENSE_IDS = ("qwen2_72b", "mistral_large_123b", "starcoder2_15b", "command_r_35b",
@@ -1598,7 +1797,7 @@ def _bf16_cache_close(torch, got, want, tag: str) -> int:
     return int(flips.sum())
 
 
-def dense_reduced_agrees(np, torch, seed: int) -> None:
+def reduced_agrees(np, torch, seed: int, ids=None, phase: str = "9(a)") -> None:
     """Phase 9(a): the five dense / vlm ids at ``reduced()`` (mistral at
     ``reduced(num_layers=8, remat_block=2)``, the two-level remat), in
     float32 from the same weights on the card and on the CPU (the card's
@@ -1611,7 +1810,9 @@ def dense_reduced_agrees(np, torch, seed: int) -> None:
     16-token prefill reproduce the 20-token prefill's logits within
     0.05) on the card; the greedy tokens of a short ``serve_requests``
     identical; then bf16 weights drawn on the card: prefill and decode
-    logits finite."""
+    logits finite. Phase 10(a) runs the same on the moe ids (``ids``),
+    but for the oracle: prefill (S tokens) and decode (one) route with
+    other expert capacities, so decode need not reproduce prefill."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_requests
     from repro_torch.models import convert
@@ -1619,7 +1820,7 @@ def dense_reduced_agrees(np, torch, seed: int) -> None:
     from repro_torch.models.shardings import SINGLE
 
     rng = np.random.default_rng(seed)
-    for arch in DENSE_IDS:
+    for arch in ids or DENSE_IDS:
         kw = dict(num_layers=8, remat_block=2) if arch == "mistral_large_123b" else {}
         cfg = get_config(arch).reduced(**kw)
         api = get_model(cfg)
@@ -1643,9 +1844,9 @@ def dense_reduced_agrees(np, torch, seed: int) -> None:
             out[dev] = (float(loss.detach()), [g.cpu() for g in grads],
                         api.prefill(model, pbatch, cfg, SINGLE, 128))
         loss_err = abs(out["cuda"][0] - out["cpu"][0])
-        grad_err = _grads_close(torch, out["cuda"][1], out["cpu"][1], f"phase 9(a) {arch}")
+        grad_err = _grads_close(torch, out["cuda"][1], out["cpu"][1], f"phase {phase} {arch}")
         if not loss_err <= 1e-4 + 1e-4 * abs(out["cpu"][0]):
-            raise AssertionError(f"phase 9(a) {arch}: loss |diff| {loss_err}")
+            raise AssertionError(f"phase {phase} {arch}: loss |diff| {loss_err}")
         (cl, cc), (gl, gc_) = out["cpu"][2], out["cuda"][2]
         torch.testing.assert_close(gl.cpu(), cl, rtol=1e-4, atol=1e-4)
         flips = sum(_bf16_cache_close(torch, gc_[k], cc[k], f"{arch} prefill {k}")
@@ -1671,33 +1872,38 @@ def dense_reduced_agrees(np, torch, seed: int) -> None:
             nxt = step["cpu"][0].argmax(-1, keepdim=True)
 
         # the decode-after-prefill oracle, on the card
-        gold = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20))).cuda()
-        prefix = {k: v.cuda() for k, v in batch.items() if k == "patch_embed"}
-        card = models["cuda"]
-        _, cache = api.prefill(card, {"tokens": gold[:, :16], **prefix}, cfg, SINGLE, 64)
-        for i in range(4):
-            ld, cache = api.decode(card, gold[:, 16 + i : 17 + i], cache,
-                                   16 + i + cfg.num_stub_tokens, cfg, SINGLE, None)
-        lp, _ = api.prefill(card, {"tokens": gold, **prefix}, cfg, SINGLE, 64)
-        torch.testing.assert_close(ld, lp, rtol=0.05, atol=0.05)
-        oracle_err = float((ld - lp).abs().max())
+        oracle_err = None
+        if cfg.family != "moe":
+            gold = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20))).cuda()
+            prefix = {k: v.cuda() for k, v in batch.items() if k == "patch_embed"}
+            card = models["cuda"]
+            _, cache = api.prefill(card, {"tokens": gold[:, :16], **prefix}, cfg, SINGLE, 64)
+            for i in range(4):
+                ld, cache = api.decode(card, gold[:, 16 + i : 17 + i], cache,
+                                       16 + i + cfg.num_stub_tokens, cfg, SINGLE, None)
+            lp, _ = api.prefill(card, {"tokens": gold, **prefix}, cfg, SINGLE, 64)
+            torch.testing.assert_close(ld, lp, rtol=0.05, atol=0.05)
+            oracle_err = float((ld - lp).abs().max())
+            del card, cache
+        else:
+            oracle_err = "not run (prefill and decode route with other capacities)"
 
         prompts = rng.integers(0, cfg.vocab_size, (4, 8), dtype=np.int32)
         served = {dev: [(r.rid, r.generated) for r in serve_requests(
             api, m, cfg, prompts, batch=2, max_new=4, cache_len=128)]
             for dev, m in models.items()}
         if served["cuda"] != served["cpu"]:
-            raise AssertionError(f"phase 9(a) {arch}: serve card {served['cuda']} != CPU "
+            raise AssertionError(f"phase {phase} {arch}: serve card {served['cuda']} != CPU "
                                  f"{served['cpu']}")
-        del models, cpu, card, cache
+        del models, cpu
         bf16 = api.init(cfg, seed, device="cuda")
         bl, bc = api.prefill(bf16, {k: v.cuda() for k, v in batch.items() if k != "labels"},
                              cfg, SINGLE, 128)
         dl, _ = api.decode(bf16, bl.argmax(-1, keepdim=True), bc, pos, cfg, SINGLE, None)
         if not (bool(torch.isfinite(bl).all()) and bool(torch.isfinite(dl).all())):
-            raise AssertionError(f"phase 9(a) {arch}: bf16 logits not finite")
+            raise AssertionError(f"phase {phase} {arch}: bf16 logits not finite")
         del bf16, bc
-        log(f"phase 9(a) {arch} ({cfg.num_layers} layers, remat_block {cfg.remat_block}) f32 "
+        log(f"phase {phase} {arch} ({cfg.num_layers} layers, remat_block {cfg.remat_block}) f32 "
             f"card vs CPU: loss |diff| {loss_err}, gradient leaves {grad_err} of max |CPU| "
             f"(tolerance 1e-3); prefill logits max_abs_err {prefill_err}, caches within 1e-4 "
             f"but {flips} one-ulp bf16 neighbours; decode logits max_abs_err {decode_err} "
@@ -1714,14 +1920,31 @@ def _param_counts(model):
             sum(p.numel() for p in bf16), sum(p.numel() * p.element_size() for p in bf16))
 
 
-def dense_full_width(np, torch, seed: int) -> None:
+def _prefill_flop(cfg, s: int) -> tuple[int, int]:
+    """(projection and FFN flop, attention flop with every key scored)
+    of an s-token prefill; a moe FFN counts its router and every
+    capacity slot of every expert, as the port computes them."""
+    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    if cfg.family == "moe":
+        from repro_torch.models.moe import capacity
+
+        ffn = 2 * d * cfg.num_experts * (s + 3 * capacity(cfg, s) * cfg.d_ff)
+    else:
+        ffn = 2 * s * (2 if cfg.act == "gelu" else 3) * d * cfg.d_ff
+    gemm = cfg.num_layers * (2 * s * (d * (q + 2 * kv) + q * d) + ffn)
+    return gemm, 4 * s * s * cfg.num_heads * cfg.head_dim * cfg.num_layers
+
+
+def full_width_serve(np, torch, seed: int, arch: str = "starcoder2_15b",
+                     phase: str = "9(b)") -> None:
     """Phase 9(b): starcoder2-15b at full width and full depth on the
     card, bf16 weights drawn from ``seed``: a warm-up and a profiled
     2,048-token prefill, the 32,768-token prefill of
     ``SHAPES["prefill_32k"]`` with its batch cut from 32 to 1, then the
     reference launcher's default serve and a short profiled window of
     it. Logits finite, caches of the expected shape, every request
-    finished with every token in the vocabulary."""
+    finished with every token in the vocabulary. Phase 10(b) runs the
+    same on olmoe-1b-7b."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import SHAPES, get_config
@@ -1730,17 +1953,19 @@ def dense_full_width(np, torch, seed: int) -> None:
     from repro_torch.models.shardings import SINGLE
     from repro_torch.serve.serve_step import make_prefill_step
 
-    cfg = get_config("starcoder2_15b")
+    cfg = get_config(arch)
     api = get_model(cfg)
     t0 = time.perf_counter()
     model = api.init(cfg, seed, device="cuda")
     torch.cuda.synchronize()
     n_params, n_bytes, w_params, w_bytes = _param_counts(model)
-    log(f"phase 9(b) starcoder2-15b: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
-        f"vocab {cfg.vocab_size}, window {cfg.sliding_window}: {n_params} parameters, "
-        f"{n_bytes} bytes ({w_params} bf16 weights, {w_bytes} bytes; the rest f32 biases and "
-        f"norms), drawn on the card in {time.perf_counter() - t0:.3f} s; "
+    experts = (f", {cfg.num_experts} experts, top {cfg.experts_per_token}"
+               if cfg.family == "moe" else "")
+    log(f"phase {phase} {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads of {cfg.head_dim}, d_ff {cfg.d_ff}"
+        f"{experts}, vocab {cfg.vocab_size}, window {cfg.sliding_window}: {n_params} "
+        f"parameters, {n_bytes} bytes ({w_params} bf16 weights, {w_bytes} bytes; the rest f32 "
+        f"biases, norms and routers), drawn on the card in {time.perf_counter() - t0:.3f} s; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
     rng = np.random.default_rng(seed)
 
@@ -1753,7 +1978,7 @@ def dense_full_width(np, torch, seed: int) -> None:
         prefill(model, {"tokens": short})
         torch.cuda.synchronize()
         short_s = time.perf_counter() - t0
-    device_breakdown(prof, "phase 9(b) prefill[2048 tokens, profiled]", short_s)
+    device_breakdown(prof, f"phase {phase} prefill[2048 tokens, profiled]", short_s, top=12)
     del prof
 
     cell = SHAPES["prefill_32k"]
@@ -1765,13 +1990,11 @@ def dense_full_width(np, torch, seed: int) -> None:
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    d, q, kv = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    gemm_flop = 2 * s * cfg.num_layers * (d * (q + 2 * kv) + q * d + 2 * d * cfg.d_ff)
-    attn_flop = 4 * s * s * cfg.num_heads * cfg.head_dim * cfg.num_layers
+    gemm_flop, attn_flop = _prefill_flop(cfg, s)
     floor_s = max((gemm_flop + attn_flop) / BF16_FLOPS_PER_S, w_bytes / HBM_BYTES_PER_S)
-    log(f"phase 9(b) prefill[{cell.name} with its batch cut from {cell.global_batch} to 1]: "
+    log(f"phase {phase} prefill[{cell.name} with its batch cut from {cell.global_batch} to 1]: "
         f"{s} tokens in {prefill_s:.6f} s wall ({s / prefill_s:.3f} tokens/s); "
-        f"{gemm_flop} projection and MLP flop, {attn_flop} attention flop (every key scored), "
+        f"{gemm_flop} projection and FFN flop, {attn_flop} attention flop (every key scored), "
         f"least time at the bf16 peak {floor_s:.6f} s; peak memory {peak} bytes; cache "
         f"{sum(v.numel() * v.element_size() for v in cache.values())} bytes")
     want = (cfg.num_layers, 1, s, cfg.num_kv_heads, cfg.head_dim)
@@ -1793,7 +2016,7 @@ def dense_full_width(np, torch, seed: int) -> None:
     # each prompt but its last token fed through decode, then max_new
     # decode steps for each wave of `batch` requests
     calls = requests * (prompt_len - 1) + -(-requests // batch) * max_new
-    log(f"phase 9(b) serve[{requests} requests, batch {batch}, prompt {prompt_len}, max-new "
+    log(f"phase {phase} serve[{requests} requests, batch {batch}, prompt {prompt_len}, max-new "
         f"{max_new}, cache-len {cache_len}]: served {len(finished)} requests, {n_tokens} tokens "
         f"in {serve_s:.6f} s wall ({n_tokens / serve_s:.3f} tokens/s; {calls} decode calls, "
         f"{serve_s / calls * 1e3:.3f} ms each, the weights' HBM floor "
@@ -1804,15 +2027,15 @@ def dense_full_width(np, torch, seed: int) -> None:
                        cache_len=cache_len)
         torch.cuda.synchronize()
         window_s = time.perf_counter() - t0
-    device_breakdown(prof, f"phase 9(b) serve window[2 requests, batch {batch}, prompt 8, "
-                           f"max-new 4, profiled]", window_s)
+    device_breakdown(prof, f"phase {phase} serve window[2 requests, batch {batch}, prompt 8, "
+                           f"max-new 4, profiled]", window_s, top=12)
     del prof
     bad = [r.rid for r in finished
            if len(r.generated) != max_new or not all(0 <= t < cfg.vocab_size for t in r.generated)]
     if len(finished) != requests or bad:
-        raise AssertionError(f"phase 9(b) serve: {len(finished)} of {requests} finished; "
+        raise AssertionError(f"phase {phase} serve: {len(finished)} of {requests} finished; "
                              f"bad {bad}")
-    log(f"phase 9(b) serve: first requests {[(r.rid, r.generated[:8]) for r in finished[:4]]}")
+    log(f"phase {phase} serve: first requests {[(r.rid, r.generated[:8]) for r in finished[:4]]}")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1830,14 +2053,41 @@ def dense_paths(np, torch, seed: int) -> None:
         f"(max_memory_allocated after a reset {torch.cuda.max_memory_allocated()})")
     _build.reset_launches()
     t0 = time.perf_counter()
-    dense_reduced_agrees(np, torch, seed)
+    reduced_agrees(np, torch, seed)
     log(f"phase 9(a) done in {time.perf_counter() - t0:.1f} s")
-    dense_full_width(np, torch, seed)
+    full_width_serve(np, torch, seed)
     log(f"phase 9(b) done in {time.perf_counter() - t0:.1f} s")
     launched = {name: n for name, n in _build.LAUNCHES.items() if n}
     log(f"phase 9 kernel launches: {launched or 'none'}")
     if launched:
         raise AssertionError(f"phase 9 launched kernels {launched}")
+
+
+MOE_IDS = ("olmoe_1b_7b", "granite_moe_3b_a800m")
+
+
+def moe_paths(np, torch, seed: int) -> None:
+    """Phase 10: the moe family on the card (TF32 off). (a) Both moe ids
+    at ``reduced()`` card vs CPU, as phase 9(a) holds the dense ones; (b)
+    olmoe-1b-7b at full width and depth, as phase 9(b) serves
+    starcoder2. The moe FFN is plain torch (as the reference's is plain
+    ``jnp``): the launch counts stay 0."""
+    from repro_torch.kernels import _build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 10 starts with {torch.cuda.memory_allocated()} bytes allocated")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    reduced_agrees(np, torch, seed, MOE_IDS, "10(a)")
+    log(f"phase 10(a) done in {time.perf_counter() - t0:.1f} s")
+    full_width_serve(np, torch, seed, "olmoe_1b_7b", "10(b)")
+    log(f"phase 10(b) done in {time.perf_counter() - t0:.1f} s")
+    launched = {name: n for name, n in _build.LAUNCHES.items() if n}
+    log(f"phase 10 kernel launches: {launched or 'none'}")
+    if launched:
+        raise AssertionError(f"phase 10 launched kernels {launched}")
 
 
 def main() -> int:
@@ -1858,6 +2108,9 @@ def main() -> int:
     ap.add_argument("--dense-only", action="store_true",
                     help="build, run phase 9 (the dense and vlm families on the card), and "
                          "stop (no other phase, no result line)")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="build, run phase 10 (the moe family on the card), and stop (no "
+                         "other phase, no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1918,6 +2171,11 @@ def main() -> int:
         log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
         log(smi)
         return 0
+    if args.moe_only:
+        moe_paths(np, torch, args.seed)
+        log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        return 0
     rows = check_kernels(np, torch, args.seed)
     matrix_rows = check_matrix_kernels(np, torch, args.seed)
     codec = codec_path(np, torch, args.seed)
@@ -1940,6 +2198,8 @@ def main() -> int:
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     dense_paths(np, torch, args.seed)
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
+    moe_paths(np, torch, args.seed)
+    log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     # each kernel's launches come from the path that runs it
     source = {"gf256_matmul_planes": codec, "xor_parity": codec,
               "gf256_matmul_planes_batched": bucketed, "xor_parity_batched": bucketed}

@@ -19,13 +19,15 @@ ARCH_IDS = [
     "seamless_m4t_large_v2",
     "pixtral_12b",
 ]
-PORTED = (  # the ssm, dense and vlm families
+PORTED = (  # the ssm, dense, vlm and moe families
     "falcon_mamba_7b",
     "qwen2_72b",
     "mistral_large_123b",
     "starcoder2_15b",
     "command_r_35b",
     "pixtral_12b",
+    "olmoe_1b_7b",
+    "granite_moe_3b_a800m",
 )
 
 

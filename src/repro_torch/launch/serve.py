@@ -69,7 +69,9 @@ def serve_requests(api, params, cfg, prompts, *, batch: int, max_new: int,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a ported id (repro_torch.configs.PORTED): falcon_mamba_7b, the dense "
+                         "and vlm ids, olmoe_1b_7b, granite_moe_3b_a800m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)

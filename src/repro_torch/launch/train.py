@@ -1,16 +1,16 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id> [...]``.
 
-    python -m repro_torch.launch.train --arch falcon_mamba_7b [--reduced] \\
+    python -m repro_torch.launch.train --arch olmoe_1b_7b [--reduced] \\
         [--steps 200 --seq-len 256 --global-batch 8 --ckpt-every 50] \\
         [--quantize-v] [--device cuda|cpu] [--seed 0]
 
 The single-process engine (train/loop.py) on one device: the card by
 default, raising without one; ``--device cpu`` runs the plain torch path
-on the host. The CORE checkpoint layer is always on. The reference's
-``--mesh`` and ``--devices`` wait for the mesh slice and raise
-``NotImplementedError``, as does an ``--arch`` of any family but ssm
-(``Trainer`` refuses it: dense training is the next slice). Ends with
-``done at step N; final loss X``.
+on the host. The CORE checkpoint layer is always on. ``--arch`` takes
+every id of the ssm, dense, vlm and moe families; one of a family not
+ported yet raises ``NotImplementedError`` naming ROADMAP queue 1, as do
+the reference's ``--mesh`` and ``--devices``, which wait for the mesh
+slice. Ends with ``done at step N; final loss X``.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ import sys
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="a ported id (repro_torch.configs.PORTED): falcon_mamba_7b, the dense "
+                         "and vlm ids, olmoe_1b_7b, granite_moe_3b_a800m")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)

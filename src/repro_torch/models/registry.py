@@ -8,8 +8,8 @@
 
 ``batch`` is a dict with ``tokens`` (and ``labels``, an optional
 ``loss_mask`` for ``loss``; ``patch_embed`` for vlm). The port serves
-and trains the ssm family and serves the dense and vlm families; the
-moe, hybrid and encdec families wait in ROADMAP queue 1.
+and trains the ssm, dense, vlm and moe families; the hybrid and encdec
+families wait in ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -17,9 +17,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+import torch
+
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import mamba
+from repro_torch.models import layers as L
+from repro_torch.models import mamba, moe, stack
 from repro_torch.models import transformer as T
+from repro_torch.models.shardings import SINGLE
 
 
 @dataclass(frozen=True)
@@ -54,6 +58,55 @@ DENSE = ModelApi(
 VLM = DENSE  # the patch-embedding stub prefix is handled inside loss/prefill
 
 
+# -- moe ----------------------------------------------------------------------
+
+
+def _moe_init(cfg, seed=0, *, device=None, dtype=torch.bfloat16):
+    """The dense LM with ``moe.init_moe`` as every layer's FFN."""
+    return T.TransformerLM(cfg, device=device, seed=seed, dtype=dtype, ffn_init=moe.init_moe)
+
+
+def _moe_loss(params, batch, cfg, ax=SINGLE):
+    """The dense LM's wiring with each layer's load-balance aux carried
+    through the fold (weight 0.01, Switch-style), each layer
+    rematerialized: the reference's own fold, never the two-level one."""
+    x = L.embed_tokens(params.embed, batch["tokens"])
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def body(h, aux, lp):
+        h = h + L.attention_train(L.norm(h, lp.ln1, cfg), lp.attn, cfg, ax, positions)
+        y, a = moe.moe_ffn(L.norm(h, lp.ln2, cfg), lp.ffn, cfg, ax)
+        return h + y, aux + a
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in params.layers:
+        x, aux = stack.remat(body, x, aux, lp)
+    x = L.norm(x, params.ln_f, cfg)
+    mask = batch.get("loss_mask")
+    xent = T.chunked_xent(x, T.unembed_weight(params, cfg), T._on(batch["labels"], x.device),
+                          cfg, ax, None if mask is None else T._on(mask, x.device))
+    return xent + 0.01 * aux / cfg.num_layers
+
+
+def _moe_prefill(params, batch, cfg, ax, cache_len):
+    return T.prefill(params, batch["tokens"], cfg, ax, cache_len, ffn_apply=moe.moe_ffn_noaux)
+
+
+def _moe_decode(params, token, cache, pos, cfg, ax, plan):
+    return T.decode_step(params, token, cache, pos, cfg, ax, plan, ffn_apply=moe.moe_ffn_noaux)
+
+
+MOE = ModelApi(
+    family="moe",
+    init=_moe_init,
+    loss=_moe_loss,
+    prefill=_moe_prefill,
+    decode=_moe_decode,
+    init_cache=T.init_cache,
+    cache_shape=T.cache_shape,
+)
+
+
 # -- ssm ----------------------------------------------------------------------
 
 
@@ -71,7 +124,7 @@ SSM = ModelApi(
     cache_shape=mamba.cache_shape,
 )
 
-_FAMILIES = {"dense": DENSE, "vlm": VLM, "ssm": SSM}
+_FAMILIES = {"dense": DENSE, "vlm": VLM, "moe": MOE, "ssm": SSM}
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:

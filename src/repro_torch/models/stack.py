@@ -26,7 +26,7 @@ def stacked_init(init_fn: Callable[[], nn.Module], num: int) -> nn.ModuleList:
     return nn.ModuleList(init_fn() for _ in range(num))
 
 
-def _remat(fn: Callable, *args):
+def remat(fn: Callable, *args):
     """``fn(*args)``, keeping only ``args`` for backward (the bodies are
     deterministic, so no RNG state is saved)."""
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
@@ -46,10 +46,10 @@ def scan_layers(body: Callable, x: torch.Tensor, layers: nn.ModuleList, *,
             return scan_layers(body, h, blk)
 
         for g in range(0, num, block):
-            x = _remat(block_body, x, *layers[g : g + block])
+            x = remat(block_body, x, *layers[g : g + block])
         return x
     for layer in layers:
-        x = _remat(body, x, layer)
+        x = remat(body, x, layer)
     return x
 
 

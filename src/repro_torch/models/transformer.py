@@ -1,6 +1,7 @@
 """Decoder-only transformer LM (src/repro/models/transformer.py): the
-``dense`` family (mistral-large, command-r, starcoder2, qwen2) and, with
-a patch-embedding stub prefix, the ``vlm`` family (pixtral).
+``dense`` family (mistral-large, command-r, starcoder2, qwen2), with a
+patch-embedding stub prefix the ``vlm`` family (pixtral), and through
+the FFN hooks the ``moe`` family's layers (models/registry.py).
 
 Three entry points, as in the reference:
   * ``lm_loss`` — train forward (layers under remat, two-level when
@@ -12,6 +13,11 @@ Three entry points, as in the reference:
 ``TransformerLM`` holds the reference's tree as modules: ``embed``
 (V, d_model), ``layers.<i>`` (``ln1``, ``attn``, ``ln2``, ``ffn``),
 ``ln_f`` and, when the embeddings are untied, ``head`` (d_model, V).
+``ffn`` is what ``ffn_init`` builds (an ``Mlp`` by default, a
+``moe.Moe`` for the moe family). ``prefill`` and ``decode_step`` apply it
+with ``ffn_apply`` (``L.mlp`` by default), as the reference's hooks of
+the same names; the moe loss runs its own fold (models/registry.py) to
+carry the aux, so the train forward takes no hook.
 Caches keep the reference's stacked layout ``{"k", "v"}: (L, B, T, KV,
 hd)`` in bf16 whatever the compute dtype. The reference's ``res_spec``
 and ``*_specs`` pin shardings on a mesh; on one card there is nothing to
@@ -37,19 +43,20 @@ from repro_torch.models.shardings import SINGLE, MeshAxes, ServePlan
 
 
 class DecoderLayer(nn.Module):
-    """``ln1``, ``attn``, ``ln2``, ``ffn`` (the MLP)."""
+    """``ln1``, ``attn``, ``ln2``, ``ffn`` (``ffn_init``'s module, the MLP
+    by default)."""
 
-    def __init__(self, cfg: ArchConfig, gen, dtype, device):
+    def __init__(self, cfg: ArchConfig, gen, dtype, device, ffn_init=None):
         super().__init__()
         self.ln1 = L.init_norm(cfg, cfg.d_model, device)
         self.attn = L.init_attn(gen, cfg, dtype, device)
         self.ln2 = L.init_norm(cfg, cfg.d_model, device)
-        self.ffn = L.init_mlp(gen, cfg, dtype=dtype, device=device)
+        self.ffn = (ffn_init or L.init_mlp)(gen, cfg, dtype=dtype, device=device)
 
 
-def init_decoder_layer(gen, cfg: ArchConfig, dtype=torch.bfloat16,
-                       device=None) -> DecoderLayer:
-    return DecoderLayer(cfg, gen, dtype, device)
+def init_decoder_layer(gen, cfg: ArchConfig, dtype=torch.bfloat16, device=None,
+                       ffn_init=None) -> DecoderLayer:
+    return DecoderLayer(cfg, gen, dtype, device, ffn_init)
 
 
 class TransformerLM(nn.Module):
@@ -59,13 +66,14 @@ class TransformerLM(nn.Module):
     leaves them uninitialised for ``models.convert`` to replace."""
 
     def __init__(self, cfg: ArchConfig, *, device=None, seed: int | None = 0,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, ffn_init=None):
         super().__init__()
         dev = resolve_device(device)
         gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
         self.embed = L.init_embed(gen, cfg, dtype, dev)
         self.layers = stack.stacked_init(
-            lambda: init_decoder_layer(gen, cfg, dtype=dtype, device=dev), cfg.num_layers)
+            lambda: init_decoder_layer(gen, cfg, dtype=dtype, device=dev, ffn_init=ffn_init),
+            cfg.num_layers)
         self.ln_f = L.init_norm(cfg, cfg.d_model, dev)
         if not cfg.tie_embeddings:
             self.head = L.init_dense(gen, cfg.d_model, cfg.vocab_size, False, dtype, dev).w
@@ -185,7 +193,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16
 
 @torch.inference_mode()
 def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
-            cache_len: int = 0, prefix_embed=None):
+            cache_len: int = 0, prefix_embed=None, ffn_apply=None):
     """Full-sequence forward that also fills the KV cache. Returns
     (last-position logits (B, V), cache): the cache holds the S
     positions' rotated k and v in bf16, zero-padded to ``cache_len``
@@ -200,7 +208,7 @@ def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGL
         q, k, v = L.qkv_proj(xn, lp.attn, cfg, ax, positions)
         o = L.attention_core_train(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg), cfg, ax)
         x = x + L.dense(o, lp.attn.wo.w)
-        x = x + L.mlp(L.norm(x, lp.ln2, cfg), lp.ffn, cfg, ax)
+        x = x + (ffn_apply or L.mlp)(L.norm(x, lp.ln2, cfg), lp.ffn, cfg, ax)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = L.norm(x, params.ln_f, cfg)
@@ -210,7 +218,7 @@ def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGL
 
 @torch.inference_mode()
 def decode_step(params: TransformerLM, token, cache: dict, pos, cfg: ArchConfig,
-                ax: MeshAxes = SINGLE, plan: ServePlan | None = None):
+                ax: MeshAxes = SINGLE, plan: ServePlan | None = None, ffn_apply=None):
     """One-token decode. token: (B, 1) ints; pos: the position being
     written (an int, one for every slot, as in the reference). Returns
     (logits (B, V), the new cache); ``cache`` is left as it was."""
@@ -222,7 +230,7 @@ def decode_step(params: TransformerLM, token, cache: dict, pos, cfg: ArchConfig,
         o, nk, nv = L.attention_decode_general(L.norm(h, lp.ln1, cfg), lc["k"], lc["v"],
                                                lp.attn, cfg, ax, pos, plan)
         h = h + o
-        h = h + L.mlp(L.norm(h, lp.ln2, cfg), lp.ffn, cfg, ax)
+        h = h + (ffn_apply or L.mlp)(L.norm(h, lp.ln2, cfg), lp.ffn, cfg, ax)
         return h, {"k": nk, "v": nv}
 
     x, new_cache = stack.scan_layers_with_cache(body, x, params.layers, cache)

@@ -10,9 +10,11 @@ the reference's layout (``models.convert.to_reference_tree``, the
 stacked optimizer state and the step), so the byte stream, the group
 matrices and the checksums are the reference's for the same state;
 ``restore_latest`` decodes it through failed nodes and rebuilds a
-``TrainState`` on the device. The reference's ``mesh`` (and
-``place_state``) waits for the mesh slice; a family other than ssm
-raises at construction (dense training is the next slice).
+``TrainState`` on the device. Every family the registry serves trains
+(ssm, dense, vlm and moe); any other raises ``NotImplementedError``
+naming ROADMAP queue 1, from ``configs.get_config`` or ``get_model``.
+The reference's ``mesh`` (and ``place_state``) waits for the mesh
+slice.
 """
 
 from __future__ import annotations
@@ -55,10 +57,6 @@ class Trainer:
     device: Any = None
 
     def __post_init__(self):
-        if self.cfg.family != "ssm":
-            raise NotImplementedError(
-                f"{self.cfg.name}: the port trains the ssm family only; {self.cfg.family} "
-                "training waits for its slice (ROADMAP queue 1)")
         if self.mesh is not None:
             raise NotImplementedError(
                 "a mesh waits for the mesh slice (ROADMAP queue 1); the port trains on one device")

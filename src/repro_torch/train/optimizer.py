@@ -13,7 +13,14 @@ rank >= 2, which is every stacked layer leaf (per-layer vectors such as
 the embedding, but not ``ln_f.scale``; and the quantized v cuts the
 flattened stacked leaf into ``qblock``-element blocks, so one block may
 span two layers. ``adamw_update`` is a pure function of stacked trees;
-the train step writes its new parameters back into the layer modules.
+``adamw_update_`` computes the same values with the state donated, as
+the reference's jitted step donates it: it overwrites the parameters,
+m and v in place, a chunk of each leaf at a time, so that a step never
+holds a second copy of the optimizer state nor more than one chunk's
+f32 temporaries (by their byte count, the pure form's copies and
+temporaries at starcoder2-15b's width, 8 layers, pass the card's 80 GB).
+The train step uses it and writes the new parameters back into the
+layer modules.
 """
 
 from __future__ import annotations
@@ -38,6 +45,10 @@ class OptConfig:
     clip_norm: float = 1.0
     quantize_v: bool = False  # int8 blockwise second moment
     qblock: int = 256
+
+
+# elements of a leaf that ``adamw_update_`` updates at a time
+CHUNK = 1 << 24
 
 
 def schedule(c: OptConfig, step: torch.Tensor) -> torch.Tensor:
@@ -108,30 +119,78 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def _step_scalars(grads: dict, state: dict, c: OptConfig):
+    """(count, grad norm, clip scale, lr, bias corrections 1 and 2)."""
+    count = state["count"] + 1
+    gn = global_norm(grads)
+    scale = torch.clamp(c.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
+    bc1 = 1 - c.b1 ** count.to(torch.float32)
+    bc2 = 1 - c.b2 ** count.to(torch.float32)
+    return count, gn, scale, schedule(c, count), bc1, bc2
+
+
+def _adamw(p, g, m, vf, decays: bool, c: OptConfig, scale, lr, bc1, bc2):
+    """One leaf's (or one chunk of it) new (p, m, v), v in float32;
+    ``decays``: the leaf has rank >= 2."""
+    g = g.to(torch.float32) * scale
+    m2 = c.b1 * m + (1 - c.b1) * g
+    v2 = c.b2 * vf + (1 - c.b2) * torch.square(g)
+    mhat = m2 / bc1
+    vhat = v2 / bc2
+    step = mhat / (torch.sqrt(vhat) + c.eps)
+    decay = c.weight_decay * p.to(torch.float32) if decays else 0.0
+    p2 = (p.to(torch.float32) - lr * (step + decay)).to(p.dtype)
+    return p2, m2, v2
+
+
 @torch.no_grad()
 def adamw_update(grads: dict, state: dict, params: dict, c: OptConfig):
     """Stacked trees in, (new_params, new_state, metrics) out; new
     parameters keep each leaf's dtype."""
-    count = state["count"] + 1
-    gn = global_norm(grads)
-    scale = torch.clamp(c.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    lr = schedule(c, count)
-    bc1 = 1 - c.b1 ** count.to(torch.float32)
-    bc2 = 1 - c.b2 ** count.to(torch.float32)
+    count, gn, scale, lr, bc1, bc2 = _step_scalars(grads, state, c)
 
     def upd(p, g, m, v):
-        g = g.to(torch.float32) * scale
-        m2 = c.b1 * m + (1 - c.b1) * g
         vf = _dequantize(*v, p.shape, c.qblock) if c.quantize_v else v
-        v2 = c.b2 * vf + (1 - c.b2) * torch.square(g)
-        mhat = m2 / bc1
-        vhat = v2 / bc2
-        step = mhat / (torch.sqrt(vhat) + c.eps)
-        decay = c.weight_decay * p.to(torch.float32) if p.dim() >= 2 else 0.0
-        p2 = (p.to(torch.float32) - lr * (step + decay)).to(p.dtype)
-        v_out = _quantize(v2, c.qblock) if c.quantize_v else v2
-        return p2, m2, v_out
+        p2, m2, v2 = _adamw(p, g, m, vf, p.dim() >= 2, c, scale, lr, bc1, bc2)
+        return p2, m2, (_quantize(v2, c.qblock) if c.quantize_v else v2)
 
     out = tree_map(upd, params, grads, state["m"], state["v"])
     new_p, new_m, new_v = (tree_map(lambda o, i=i: o[i], out) for i in range(3))
     return new_p, {"m": new_m, "v": new_v, "count": count}, {"grad_norm": gn, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update_(grads: dict, state: dict, params: dict, c: OptConfig):
+    """``adamw_update`` with ``params`` and ``state`` donated: each
+    parameter leaf, m and v (the int8 q and scales too) is overwritten
+    with its new value, ``CHUNK`` elements at a time (rounded to whole
+    ``qblock`` blocks, so no block spans two chunks). Elementwise, so
+    the values are ``adamw_update``'s bit for bit. Every leaf must be
+    contiguous. Returns (new_state, metrics); ``params`` holds the new
+    parameters."""
+    count, gn, scale, lr, bc1, bc2 = _step_scalars(grads, state, c)
+    chunk = max(c.qblock, CHUNK // c.qblock * c.qblock)
+
+    def upd(p, g, m, v):
+        pf, gf, mf = p.view(-1), g.reshape(-1), m.view(-1)
+        for i in range(0, pf.numel(), chunk):
+            sl = slice(i, i + chunk)
+            if c.quantize_v:
+                blocks = slice(i // c.qblock, -(-min(i + chunk, pf.numel()) // c.qblock))
+                vf = _dequantize(v[0][blocks], v[1][blocks], pf[sl].shape, c.qblock)
+            else:
+                vf = v.view(-1)[sl]
+            p2, m2, v2 = _adamw(pf[sl], gf[sl], mf[sl], vf, p.dim() >= 2, c, scale, lr,
+                                bc1, bc2)
+            pf[sl].copy_(p2)
+            mf[sl].copy_(m2)
+            if c.quantize_v:
+                q, sc = _quantize(v2, c.qblock)
+                v[0][blocks].copy_(q)
+                v[1][blocks].copy_(sc)
+            else:
+                vf.copy_(v2)
+
+    tree_map(upd, params, grads, state["m"], state["v"])
+    return ({"m": state["m"], "v": state["v"], "count": count},
+            {"grad_norm": gn, "lr": lr})

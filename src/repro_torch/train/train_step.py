@@ -8,8 +8,10 @@ divided by the count, as the reference's ``lax.scan`` body does, where
 bf16 ``.grad`` accumulation would round each partial sum. The optimizer
 sees the reference's stacked trees (``models.convert.stacked_tree``) and
 its new values are written back into the layer modules in place: the
-state's ``params`` module is updated, as the reference's jitted step
-donates its state.
+state is donated, as the reference's jitted step donates it. The
+``params`` module and the optimizer's m and v are updated in place
+(``optimizer.adamw_update_``), so the state passed in is the state
+returned; the per-layer gradients are freed once stacked.
 
 The reference's ``state_shape`` and ``state_specs`` (AOT lowering and
 the state's mesh sharding) wait for the mesh slice.
@@ -94,11 +96,12 @@ def make_train_step(cfg: ArchConfig, api: ModelApi, ax: MeshAxes, oc: opt.OptCon
 
     def train_step(state: TrainState, batch: dict):
         loss, grads = grads_of(state.params, batch)
+        stacked_grads = convert.stacked_tree(state.params, grads)
+        del grads
         stacked = convert.stacked_tree(state.params)
-        new, opt_state, om = opt.adamw_update(
-            convert.stacked_tree(state.params, grads), state.opt, stacked, oc)
-        del stacked, grads
-        convert.load_stacked(state.params, new)
+        opt_state, om = opt.adamw_update_(stacked_grads, state.opt, stacked, oc)
+        del stacked_grads
+        convert.load_stacked(state.params, stacked)
         metrics = {"loss": loss, **om, "step": state.step + 1}
         return TrainState(state.params, opt_state, state.step + 1), metrics
 

@@ -4,9 +4,9 @@ its source-group partitioning and every group count) and matrix kernel
 device path against its CPU path, byte for byte; the selective scan (K8)
 against its plain version at rtol = atol = 2e-5 (y) and bit for bit
 (h_last), over both of its bodies, and its refusal of an operand that
-requires grad; one reduced falcon-mamba train step on the card against
-the CPU; a reduced starcoder2 f32 prefill and decode on the card against
-the CPU. Every test is marked
+requires grad; one reduced falcon-mamba, qwen2 or olmoe train step on the
+card against the CPU; a reduced starcoder2 or olmoe f32 prefill and decode
+on the card against the CPU. Every test is marked
 ``cuda`` and skips without a CUDA device (the kernels are CUDA C++ and
 have no CPU mode). Imports nothing of JAX, so it runs where the port
 runs:
@@ -260,8 +260,9 @@ def test_selective_scan_refuses_grad_on_the_card(card):
 
 
 @pytest.mark.cuda
-def test_reduced_train_step_card_matches_cpu(card, monkeypatch):
-    """One train step of the reduced falcon-mamba (2 layers) in float32,
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "qwen2_72b", "olmoe_1b_7b"])
+def test_reduced_train_step_card_matches_cpu(arch, card, monkeypatch):
+    """One train step of the reduced falcon-mamba, qwen2 or olmoe (2 layers) in float32,
     TF32 off, from the same weights on the card and on the CPU: the loss
     within rtol = atol = 1e-4, each gradient leaf within 1e-3 of its max
     |CPU|, the parameters after the update within 1e-5 (a tenth of the
@@ -277,7 +278,7 @@ def test_reduced_train_step_card_matches_cpu(card, monkeypatch):
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    cfg = get_config("falcon_mamba_7b").reduced(num_layers=2)
+    cfg = get_config(arch).reduced(num_layers=2)
     api = get_model(cfg)
     oc = opt.OptConfig(lr=1e-4, warmup_steps=1)
     cpu = api.init(cfg, 0, device="cpu", dtype=torch.float32).requires_grad_(True)
@@ -309,9 +310,10 @@ def _bf16_neighbours(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 @pytest.mark.cuda
-def test_reduced_dense_prefill_decode_card_matches_cpu(card, monkeypatch):
+@pytest.mark.parametrize("arch", ["starcoder2_15b", "olmoe_1b_7b"])
+def test_reduced_dense_prefill_decode_card_matches_cpu(arch, card, monkeypatch):
     """The reduced starcoder2 (layernorm, biases, gelu, GQA, a 64-token
-    window) in float32, TF32 off, from the same weights on the card and
+    window) or olmoe (8 experts, top 2) in float32, TF32 off, from the same weights on the card and
     on the CPU: the prefill logits within rtol = atol = 1e-4, its bf16
     caches too except for one-ulp neighbours (float32-sized differences
     round k or v to the next bf16 value) in at most 1e-3 of the
@@ -324,7 +326,7 @@ def test_reduced_dense_prefill_decode_card_matches_cpu(card, monkeypatch):
     from repro_torch.models.shardings import SINGLE
 
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    cfg = get_config("starcoder2_15b").reduced()
+    cfg = get_config(arch).reduced()
     api = get_model(cfg)
     cpu = api.init(cfg, 0, device="cpu", dtype=torch.float32)
     models = {"cpu": cpu, "cuda": convert.from_jax(convert.to_reference_tree(cpu), cfg,

@@ -1,9 +1,10 @@
 """The port's ``lm_loss`` and its gradients against the JAX package's
 on the loss's special paths: command-r's tied embedding (the (V, d)
 ``embed`` applied transposed as the head), pixtral's patch-embedding
-prefix (its positions run through the layers and take no loss), and
+prefix (its positions run through the layers and take no loss),
 mistral-large at ``reduced(num_layers=8, remat_block=2)``, whose layers
-take the two-level remat (four blocks of two). The plain path is in
+take the two-level remat (four blocks of two), and granite-moe's tied
+embedding under the moe loss's own fold (the aux carried through it). The plain path is in
 tests/test_torch_model_grads.py, with the same weights, batch and
 tolerances: the loss within rtol = atol = 1e-4, each gradient leaf
 within 1e-3 of its max |ref|. The two-level remat's loss and gradients
@@ -25,7 +26,7 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.shardings import SINGLE  # noqa: E402
 
-CASES = ("command_r_35b", "pixtral_12b", "mistral_large_123b/8L-block2")
+CASES = ("command_r_35b", "pixtral_12b", "mistral_large_123b/8L-block2", "granite_moe_3b_a800m")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -55,7 +56,9 @@ def test_every_gradient_leaf_matches_jax(case, runs):
 def test_tied_and_prefix_cases_take_their_paths():
     tied, _ = C.cfgs("command_r_35b")
     vlm, _ = C.cfgs("pixtral_12b")
+    tied_moe, _ = C.cfgs("granite_moe_3b_a800m")
     assert tied.tie_embeddings and vlm.family == "vlm" and vlm.num_stub_tokens == 8
+    assert tied_moe.tie_embeddings and tied_moe.family == "moe"
     assert "patch_embed" in C.batch(vlm)[0]
     assert C.cfgs("mistral_large_123b/8L-block2")[0].remat_block == 2
 

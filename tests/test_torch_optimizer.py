@@ -3,7 +3,8 @@ package's (``repro.train.optimizer``), on the stacked trees of the
 reduced falcon-mamba (2 layers): the schedule, the int8 blockwise
 quantizer, ``init_opt_state``, ``global_norm`` and three ``adamw_update``
 steps from identical random trees and gradients, with and without
-``quantize_v``.
+``quantize_v``; and the train step's donated ``adamw_update_`` against
+the pure ``adamw_update``, bit for bit.
 
 Tolerances, set from float32: the schedule within rtol 1e-6; after
 each update, every element of the params, m and v within 1e-6 of its
@@ -189,3 +190,34 @@ def test_decay_set_is_the_references(shapes):
     by_rank = {path for path, old, _ in _pairs(params, port_in) if old.ndim >= 2}
     assert moved["ref"] == moved["port"] == by_rank
     assert "['ln_f']['scale']" not in by_rank and "['layers']['d_skip']" in by_rank
+
+
+@pytest.mark.parametrize("chunk", [1 << 24, 300, 256])
+@pytest.mark.parametrize("quantize_v", [False, True])
+def test_donated_update_equals_the_pure_one(shapes, quantize_v, chunk, monkeypatch):
+    """``adamw_update_`` (the train step's: params, m and v overwritten
+    in place, ``CHUNK`` elements at a time, rounded to whole ``qblock``
+    blocks) against ``adamw_update`` over three steps, the first
+    gradient clipped: every leaf equal bit for bit, and the state's
+    tensors are the ones passed in."""
+    monkeypatch.setattr(topt, "CHUNK", chunk)
+    tc = topt.OptConfig(lr=1e-3, warmup_steps=2, decay_steps=10, quantize_v=quantize_v)
+    rng = np.random.default_rng(4)
+    params = _draw(shapes, rng, 1.0)
+    pure_p, pure_s = tree_to(params, "cpu"), topt.init_opt_state(tree_to(params, "cpu"), tc)
+    own_p, own_s = tree_to(params, "cpu"), topt.init_opt_state(tree_to(params, "cpu"), tc)
+    m_leaves = topt.tree_leaves(own_s["m"])
+    for i in range(3):
+        grads = _draw(shapes, rng, 0.1 if i == 0 else 1e-3)
+        pure_p, pure_s, pure_m = topt.adamw_update(tree_to(grads, "cpu"), pure_s, pure_p, tc)
+        own_s, own_m = topt.adamw_update_(tree_to(grads, "cpu"), own_s, own_p, tc)
+        assert float(own_m["grad_norm"]) == float(pure_m["grad_norm"])
+        assert int(own_s["count"]) == int(pure_s["count"]) == i + 1
+        for a, b in zip(topt.tree_leaves(own_p), topt.tree_leaves(pure_p), strict=True):
+            assert torch.equal(a, b)
+        for name in ("m", "v"):
+            for a, b in zip(topt.tree_leaves(own_s[name]), topt.tree_leaves(pure_s[name]),
+                            strict=True):
+                pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+                assert all(torch.equal(x, y) for x, y in pairs), name
+    assert all(a is b for a, b in zip(topt.tree_leaves(own_s["m"]), m_leaves))

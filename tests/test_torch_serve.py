@@ -177,10 +177,10 @@ def test_greedy_sample_takes_the_first_maximum(seed):
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_config_registry(arch):
-    """The reference's ids; the ported families (ssm, dense, vlm) resolve
-    to the reference's config and family and train through their
-    family's ``lm_loss`` as the reference does, the others raise until
-    their slice."""
+    """The reference's ids; the ported families (ssm, dense, vlm, moe)
+    resolve to the reference's config and family and train through the
+    loss of the reference's name and module (their family's ``lm_loss``;
+    the registry's ``_moe_loss``), the others raise until their slice."""
     assert configs.ARCH_IDS == jconfigs.ARCH_IDS
     want = jconfigs.get_config(arch)
     if arch in configs.PORTED:
@@ -189,11 +189,12 @@ def test_config_registry(arch):
         cfg = configs.get_config(arch.replace("_", "-"))
         assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
         assert get_model(cfg).family == jax_get_model(want).family
-        family_module = mamba if want.family == "ssm" else transformer
-        assert get_model(cfg).loss is family_module.lm_loss
-        assert jax_get_model(want).loss.__name__ == "lm_loss"
-        assert jax_get_model(want).loss.__module__.rsplit(".", 1)[-1] == (
-            family_module.__name__.rsplit(".", 1)[-1])
+        loss, ref_loss = get_model(cfg).loss, jax_get_model(want).loss
+        if want.family != "moe":
+            family_module = mamba if want.family == "ssm" else transformer
+            assert loss is family_module.lm_loss
+        assert loss.__name__ == ref_loss.__name__
+        assert loss.__module__.rsplit(".", 1)[-1] == ref_loss.__module__.rsplit(".", 1)[-1]
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             configs.get_config(arch)

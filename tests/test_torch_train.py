@@ -3,7 +3,13 @@
 falcon-mamba cut to 2 layers (d_model 128, N 8, vocab 512, scan_chunk
 16), seq 32, batch 2 or 4: the twin of tests/test_train_serve.py's
 training half (its elastic and pipeline cases, and the launcher, are in
-tests/test_torch_train_units.py).
+tests/test_torch_train_units.py). The reference's own training cases
+run on a dense model, ``qwen2_72b.reduced(num_layers=2)`` (QKV biases,
+an untied head): ``tiny_trainer``'s kill -> degraded restore -> repair
+-> resume, the int8-v optimizer and the step-0 checkpoint; the train
+step is also held on it, on the reduced olmoe (moe: the aux loss, the
+f32 router) and on the reduced pixtral (vlm: the ``patch_embed``
+prefix), each cut to 2 layers.
 
 Weights go across by ``models/convert.py``. Tolerances, set from
 float32 before the runs:
@@ -50,6 +56,16 @@ from repro_torch.train.loop import LoopConfig, Trainer  # noqa: E402
 CFG_J = jax_get_config("falcon_mamba_7b").reduced(num_layers=2)
 CFG = get_config("falcon_mamba_7b").reduced(num_layers=2)
 OPT = dict(lr=1e-3, warmup_steps=2, decay_steps=10)
+DENSE = "qwen2_72b"
+
+
+def _cfgs(case: str):
+    """(port, reference) config of a case: ``arch`` at
+    ``reduced(num_layers=2)``, or ``arch/4L-block2`` at 4 layers in two
+    remat blocks of two (the two-level remat)."""
+    arch, _, variant = case.partition("/")
+    kw = dict(num_layers=4, remat_block=2) if variant else dict(num_layers=2)
+    return get_config(arch).reduced(**kw), jax_get_config(arch).reduced(**kw)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -167,36 +183,59 @@ def test_chunked_xent_keeps_no_logits(params_f32):
 # ---------------------------------------------------------------------------
 
 
-def _twin_states(params_f32, oc_kw):
+def _twin_states(params_f32, oc_kw, cfg=CFG):
     jp = jax.tree.map(jnp.asarray, params_f32)
     jstate = jts.TrainState(jp, jopt.init_opt_state(jp, jopt.OptConfig(**oc_kw)),
                             jnp.zeros((), jnp.int32))
-    model = convert.from_jax(params_f32, CFG, device="cpu", trainable=True)
+    model = convert.from_jax(params_f32, cfg, device="cpu", trainable=True)
     opt_state = convert.tree_to(jax.tree.map(np.asarray, jstate.opt), "cpu")
     return jstate, ts.TrainState(model, opt_state, torch.zeros((), dtype=torch.int32))
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_reference(params_f32, microbatches):
-    jstate, state = _twin_states(params_f32, OPT)
-    jstep = jax.jit(jts.make_train_step(CFG_J, jax_get_model(CFG_J), JSINGLE,
+def _three_steps_match(params_f32, microbatches, cfg=CFG, cfg_j=CFG_J):
+    """Three train steps of both packages from the same state, on the
+    same stream (each package's pipeline, equal bit for bit)."""
+    jstate, state = _twin_states(params_f32, OPT, cfg)
+    jstep = jax.jit(jts.make_train_step(cfg_j, jax_get_model(cfg_j), JSINGLE,
                                         jopt.OptConfig(**OPT), microbatches=microbatches))
-    step = ts.make_train_step(CFG, get_model(CFG), SINGLE, opt.OptConfig(**OPT),
+    step = ts.make_train_step(cfg, get_model(cfg), SINGLE, opt.OptConfig(**OPT),
                               microbatches=microbatches)
-    pipeline = JPipeline(CFG_J, 32, 4, 0)
+    jpipeline, pipeline = JPipeline(cfg_j, 32, 4, 0), SyntheticPipeline(cfg, 32, 4, 0)
     for i in range(3):
-        batch = pipeline.batch_at(i)
-        jstate, jm = jstep(jstate, batch)
-        state, m = step(state, batch)
+        jstate, jm = jstep(jstate, jpipeline.batch_at(i))
+        state, m = step(state, pipeline.batch_at(i))
         assert int(state.step) == int(jstate.step) == i + 1 == int(m["step"])
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-4, atol=1e-4)
         assert float(m["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-4)
         assert float(m["lr"]) == pytest.approx(float(jm["lr"]), rel=1e-6)
         for path, ref, port in _leaf_pairs(jstate.params, convert.stacked_tree(state.params)):
+            assert port.shape == ref.shape, path
             tol = 1e-6 * np.max(np.abs(ref)) + 0.1 * OPT["lr"]
             assert np.max(np.abs(port - ref)) <= tol, (i, path)
     assert all(p.requires_grad for p in state.params.parameters())
     assert all(p.grad is None for p in state.params.parameters())
+
+
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_matches_reference(params_f32, microbatches):
+    _three_steps_match(params_f32, microbatches)
+
+
+@pytest.mark.parametrize("case, microbatches", [
+    (DENSE, 1), (DENSE, 2), ("starcoder2_15b/4L-block2", 1), ("olmoe_1b_7b", 1),
+    ("granite_moe_3b_a800m", 1), ("pixtral_12b", 1)])
+def test_transformer_train_step_matches_reference(case, microbatches):
+    """The same three steps on the dense, moe and vlm trees: qwen2's QKV
+    biases; starcoder2's biases and layernorm ``bias`` leaves under the
+    two-level remat; olmoe's f32 router and aux loss; granite's tied
+    head; pixtral's ``patch_embed`` prefix, carried by every batch."""
+    cfg, cfg_j = _cfgs(case)
+    p = jax_get_model(cfg_j).init(cfg_j, jax.random.PRNGKey(0))
+    batch = SyntheticPipeline(cfg, 32, 4, 0).batch_at(0)
+    assert ("patch_embed" in batch) == (cfg.family == "vlm")
+    assert cfg.remat_block == 0 or cfg.num_layers > cfg.remat_block
+    _three_steps_match(jax.tree.map(lambda a: np.asarray(a, dtype=np.float32), p), microbatches,
+                       cfg, cfg_j)
 
 
 def test_microbatches_accumulate_in_f32(monkeypatch):
@@ -207,7 +246,7 @@ def test_microbatches_accumulate_in_f32(monkeypatch):
     model.requires_grad_(True)
     batch = SyntheticPipeline(CFG, 32, 4, 0).batch_at(0)
     seen = {}
-    real = opt.adamw_update
+    real = opt.adamw_update_
 
     def spy(grads, state, params, c):
         seen["grads"] = grads
@@ -220,7 +259,7 @@ def test_microbatches_accumulate_in_f32(monkeypatch):
     parts = [torch.autograd.grad(mamba.lm_loss(model, h, CFG), list(model.parameters()))
              for h in halves]
     want = convert.stacked_tree(model, [(a.float() + b.float()) / 2 for a, b in zip(*parts)])
-    monkeypatch.setattr(opt, "adamw_update", spy)
+    monkeypatch.setattr(opt, "adamw_update_", spy)
     ts.make_train_step(CFG, get_model(CFG), SINGLE, opt.OptConfig(), microbatches=2)(state, batch)
     got = opt.tree_leaves(seen["grads"])
     assert all(g.dtype == torch.float32 for g in got)
@@ -233,11 +272,21 @@ def test_microbatches_accumulate_in_f32(monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def tiny_trainer():
+def _tiny_trainer(cfg) -> Trainer:
     lc = LoopConfig(steps=6, ckpt_every=3, log_every=100, seq_len=32,
                     global_batch=2, num_nodes=20)
-    return Trainer(CFG, lc, opt.OptConfig(**OPT), device="cpu")
+    return Trainer(cfg, lc, opt.OptConfig(**OPT), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def tiny_trainer():
+    return _tiny_trainer(CFG)
+
+
+@pytest.fixture(scope="module")
+def dense_tiny_trainer():
+    """The reference's own ``tiny_trainer``: qwen2 cut to 2 layers."""
+    return _tiny_trainer(_cfgs(DENSE)[0])
 
 
 def _state_leaves(state: ts.TrainState) -> list:
@@ -247,8 +296,7 @@ def _state_leaves(state: ts.TrainState) -> list:
     return partition.flatten(host)[0]
 
 
-def test_train_ckpt_kill_restore_resume(tiny_trainer):
-    tr = tiny_trainer
+def _kill_restore_resume(tr: Trainer):
     state = tr.run()
     assert int(state.step) == 6
     losses = [m["loss"] for m in tr.metrics_log]
@@ -281,28 +329,51 @@ def test_train_ckpt_kill_restore_resume(tiny_trainer):
     assert resumed == [m["loss"] for m in tr.metrics_log[8:]]
 
 
-def test_quantized_v_optimizer_converges():
+def test_train_ckpt_kill_restore_resume(tiny_trainer):
+    _kill_restore_resume(tiny_trainer)
+
+
+def test_dense_train_ckpt_kill_restore_resume(dense_tiny_trainer):
+    _kill_restore_resume(dense_tiny_trainer)
+
+
+def _quantized_v_converges(cfg) -> ts.TrainState:
     lc = LoopConfig(steps=5, ckpt_every=100, log_every=100, seq_len=32, global_batch=2)
-    tr = Trainer(CFG, lc, opt.OptConfig(lr=1e-3, quantize_v=True, warmup_steps=1,
+    tr = Trainer(cfg, lc, opt.OptConfig(lr=1e-3, quantize_v=True, warmup_steps=1,
                                         decay_steps=10), device="cpu")
     state = tr.run()
     assert np.isfinite(tr.metrics_log[-1]["loss"])
     leaves = [x for v in opt.tree_leaves(state.opt["v"]) for x in v]
     assert any(leaf.dtype == torch.int8 for leaf in leaves)
+    return state
 
 
-def test_save_matches_reference_trainer():
-    """A step-0 state of the reference's Trainer, converted, saved by the
-    port's Trainer: the same stream, leaf specs, group matrices,
-    placement and checksums as the reference's Trainer.save."""
+def test_quantized_v_optimizer_converges():
+    _quantized_v_converges(CFG)
+
+
+def test_dense_quantized_v_optimizer_converges():
+    """On qwen2, whose int8 v blocks fall per stacked leaf as the
+    reference's do: the same (q, scale) shapes for every leaf."""
+    cfg, cfg_j = _cfgs(DENSE)
+    state = _quantized_v_converges(cfg)
+    jp = jax_get_model(cfg_j).init(cfg_j, jax.random.PRNGKey(0))
+    jv = jopt.init_opt_state(jp, jopt.OptConfig(quantize_v=True))["v"]
+    want = [(tuple(q.shape), tuple(sc.shape)) for q, sc in
+            jax.tree.leaves(jv, is_leaf=lambda x: isinstance(x, tuple))]
+    got = [(tuple(q.shape), tuple(sc.shape)) for q, sc in opt.tree_leaves(state.opt["v"])]
+    assert got == want
+
+
+def _save_matches(cfg, cfg_j):
     jlc = JLoopConfig(steps=1, seq_len=32, global_batch=2, num_nodes=20)
-    jtr = JTrainer(CFG_J, jlc, jopt.OptConfig(**OPT))
+    jtr = JTrainer(cfg_j, jlc, jopt.OptConfig(**OPT))
     jstate = jtr.init_state()
     jman = jtr.save(jstate)
-    tr = Trainer(CFG, LoopConfig(steps=1, seq_len=32, global_batch=2, num_nodes=20),
+    tr = Trainer(cfg, LoopConfig(steps=1, seq_len=32, global_batch=2, num_nodes=20),
                  opt.OptConfig(**OPT), device="cpu")
     host = jax.tree.map(np.asarray, jstate)
-    state = ts.TrainState(convert.from_jax(host.params, CFG, device="cpu", trainable=True),
+    state = ts.TrainState(convert.from_jax(host.params, cfg, device="cpu", trainable=True),
                           convert.tree_to(host.opt, "cpu"), convert.to_tensor(host.step, "cpu"))
     man = tr.save(state)
     assert man.total_bytes == jman.total_bytes and man.group_ids == jman.group_ids
@@ -311,6 +382,20 @@ def test_save_matches_reference_trainer():
     assert tr.store.placement == jtr.store.placement
     assert tr.store.checksums == jtr.store.checksums
     assert all(np.array_equal(blk, jtr.store.blocks[key]) for key, blk in tr.store.blocks.items())
+
+
+def test_save_matches_reference_trainer():
+    """A step-0 state of the reference's Trainer, converted, saved by the
+    port's Trainer: the same stream, leaf specs, group matrices,
+    placement and checksums as the reference's Trainer.save."""
+    _save_matches(CFG, CFG_J)
+
+
+@pytest.mark.parametrize("arch", [DENSE, "olmoe_1b_7b", "granite_moe_3b_a800m"])
+def test_transformer_save_matches_reference_trainer(arch):
+    """The same on the dense tree (biases) and the moe trees (the f32
+    router; granite's tied head)."""
+    _save_matches(*_cfgs(arch))
 
 
 def test_trainer_mesh_waits_for_its_slice():

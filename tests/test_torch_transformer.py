@@ -390,6 +390,6 @@ def test_from_jax_then_to_reference_tree_is_bit_exact(arch):
 
 
 def test_from_jax_refuses_unported_families():
-    cfg = dataclasses.replace(configs.get_config("qwen2_72b").reduced(), family="moe")
+    cfg = dataclasses.replace(configs.get_config("qwen2_72b").reduced(), family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         convert.from_jax({}, cfg, device="cpu")

@@ -4,6 +4,7 @@ ported ids at ``reduced()``, the numpy-seeded batch for both packages,
 the reference's ``init`` drawn once per process, the loss and gradient
 runs of both packages, and the checks and tolerances those files state."""
 
+import contextlib
 import functools
 
 import jax
@@ -12,20 +13,20 @@ import numpy as np
 import torch
 
 from repro import configs as jconfigs
+import repro.models.moe as jmoe
 from repro.models.registry import get_model as jax_get_model
 from repro.models.shardings import SINGLE as JSINGLE
 from repro_torch import configs
-from repro_torch.models import convert
+from repro_torch.models import convert, moe
 from repro_torch.models.registry import get_model
 from repro_torch.models.shardings import SINGLE
 
 PORTED_IDS = ("falcon_mamba_7b", "qwen2_72b", "mistral_large_123b", "starcoder2_15b",
-              "command_r_35b", "pixtral_12b")
-UNPORTED_IDS = ("recurrentgemma_9b", "granite_moe_3b_a800m", "olmoe_1b_7b",
-                "seamless_m4t_large_v2")
+              "command_r_35b", "pixtral_12b", "olmoe_1b_7b", "granite_moe_3b_a800m")
+UNPORTED_IDS = ("recurrentgemma_9b", "seamless_m4t_large_v2")
 B, S, CACHE_LEN = 2, 64, 128
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
-BF16_REL = {"ssm": 4e-2, "dense": 2e-2, "vlm": 2e-2}
+BF16_REL = {"ssm": 4e-2, "dense": 2e-2, "vlm": 2e-2, "moe": 2e-2}
 FLIP_SHARE = 1e-3
 
 
@@ -90,10 +91,119 @@ def assert_f32_close(got, want, *, bf16_leaf: bool = False):
     assert not bad.any(), (int(bad.sum()), float(np.abs(g - w).max()))
 
 
-def assert_bf16_close(got, want, rel: float = BF16_REL["dense"]):
+def assert_bf16_close(got, want, rel: float = BF16_REL["dense"], held=None):
+    """max |got - want| <= rel * max |want| over the elements ``held``
+    (a mask that broadcasts against the tensors' leading axes; all when
+    None); every element of ``got`` finite."""
     g, w = to_np(got), to_np(want)
     assert g.shape == w.shape and np.isfinite(g).all()
+    if held is not None:
+        held = np.broadcast_to(held.reshape(held.shape + (1,) * (g.ndim - held.ndim)), g.shape)
+        g, w = g[held], w[held]
+        if not g.size:
+            return
     assert np.abs(g - w).max() <= rel * np.abs(w).max(), np.abs(g - w).max()
+
+
+# -- moe routing --------------------------------------------------------------
+
+ROUTE_FLIP_SHARE = 0.05  # of a step's routed tokens, over its layers
+ROUTE_MARGIN = 2.0 ** -6  # of the logits' magnitude: four bf16 ulps
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """While open, each package's ``moe.route`` records, call by call (one
+    call a layer, in order), the expert indices (B, S, kk) and router
+    logits (B, S, E) it routed by: ``{"port": [...], "ref": [...]}``.
+    The reference's record comes from ``jax.debug.callback`` (ordered),
+    so it holds under ``jit`` and ``scan``; a function traced while open
+    keeps recording, so trace the reference's steps inside it."""
+    rec = {"port": [], "ref": []}
+    real_port, real_ref = moe.route, jmoe.route
+
+    def port_route(x, w, cfg):
+        out = real_port(x, w, cfg)
+        logits = moe.L.einsum_f32("bsd,de->bse", x, w.to(x.dtype))
+        rec["port"].append((out[1].numpy(), logits.numpy()))
+        return out
+
+    def ref_route(x, w, cfg):
+        out = real_ref(x, w, cfg)
+        logits = jmoe.L.einsum_f32("bsd,de->bse", x, w.astype(x.dtype))
+        jax.debug.callback(lambda i, lg: rec["ref"].append((np.asarray(i), np.asarray(lg))),
+                           out[1], logits, ordered=True)
+        return out
+
+    moe.route, jmoe.route = port_route, ref_route
+    try:
+        yield rec
+    finally:
+        moe.route, jmoe.route = real_port, real_ref
+
+
+def route_flip_mask(rec) -> list[np.ndarray]:
+    """Per layer, a (B, S) mask of the tokens whose set of experts differs
+    between the packages (the order of a token's choices does not
+    matter: its experts are distinct, so no capacity rank moves)."""
+    jax.effects_barrier()
+    assert len(rec["port"]) == len(rec["ref"])
+    return [(np.sort(pi, -1) != np.sort(ri, -1)).any(-1)
+            for (pi, _), (ri, _) in zip(rec["port"], rec["ref"])]
+
+
+def route_flips(rec) -> list[int]:
+    """Per layer, the number of tokens whose set of experts differs."""
+    return [int(m.sum()) for m in route_flip_mask(rec)]
+
+
+def prefill_reach(masks: list[np.ndarray], num_layers: int, b: int, s: int, cache_len: int):
+    """Where a prefill's routing differences (per layer a (B, S) mask;
+    none recorded for a family without moe layers) can reach, by causality:
+    (cache mask (L, B, T), logits mask (B,)). A token routed otherwise
+    at layer l, position t changes layer l's output at t and, through
+    the capacity ranks (a cumsum over the row's tokens in order), at
+    the row's later positions; attention carries that to every later
+    position of the layers above. Layer l's cache reads layer l's input."""
+    masks = masks or [np.zeros((b, s), bool)] * num_layers
+    t = np.arange(cache_len)
+    first = np.full(b, cache_len)  # earliest position reached in a layer's input
+    cache = np.zeros((num_layers, b, cache_len), bool)
+    for layer, m in enumerate(masks):
+        cache[layer] = (t[None] >= first[:, None]) & (t[None] < s)
+        first = np.minimum(first, np.where(m.any(1), m.argmax(1), cache_len))
+    return cache, first < cache_len
+
+
+def decode_reach(masks: list[np.ndarray], cache: np.ndarray, pos: int):
+    """``prefill_reach`` for a one-token decode at ``pos`` from a cache
+    reached where ``cache`` says: the new cache mask and the logits mask
+    (B,). A layer's input at a row is reached once a layer below it read
+    a reached cache row or routed that token otherwise."""
+    new = cache.copy()
+    row = np.zeros(cache.shape[1], bool)
+    for layer, m in enumerate(masks or [np.zeros((cache.shape[1], 1), bool)] * len(cache)):
+        new[layer, :, pos] = row
+        row = row | cache[layer].any(-1) | m[:, 0]
+    return new, row
+
+
+def first_flip_margins(rec) -> list[float]:
+    """At the first layer whose routing differs (none: ``[]``): for each token whose
+    expert set differs, the gap between the port's k-th choice and the
+    reference's best expert the port left out, in the port's own logits,
+    over the logits' magnitude there (0 for an exact tie)."""
+    flips = route_flips(rec)
+    layer = next((i for i, n in enumerate(flips) if n), None)
+    if layer is None:
+        return []
+    (pi, logits), (ri, _) = rec["port"][layer], rec["ref"][layer]
+    out = []
+    for b, s in zip(*np.nonzero((np.sort(pi, -1) != np.sort(ri, -1)).any(-1))):
+        left_out = [e for e in ri[b, s] if e not in pi[b, s]]
+        kth = logits[b, s, pi[b, s, -1]]
+        out.append(float((kth - max(logits[b, s, e] for e in left_out)) / abs(kth)))
+    return out
 
 
 # -- loss and gradients -------------------------------------------------------

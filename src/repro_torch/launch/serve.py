@@ -8,7 +8,10 @@ prompts with the SlotManager (serve/kvcache.py), on the card.
 Weights are drawn from ``--seed`` on the device, prompts from a numpy
 generator with the same seed. The default device is the card; without
 one the launcher raises (``--device cpu`` runs the plain torch path).
-Prints the requests served, the tokens generated and the wall time.
+Every id of the JAX package serves. An encdec id decodes against
+``init_cache``'s zero cross-attention memory and never runs its encoder,
+as the reference's launcher does. Prints the requests served, the tokens
+generated and the wall time.
 """
 
 from __future__ import annotations
@@ -70,8 +73,8 @@ def serve_requests(api, params, cfg, prompts, *, batch: int, max_new: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="a ported id (repro_torch.configs.PORTED): falcon_mamba_7b, the dense "
-                         "and vlm ids, olmoe_1b_7b, granite_moe_3b_a800m")
+                    help="an id of repro_torch.configs.ARCH_IDS (every family, e.g. "
+                         "falcon_mamba_7b, qwen2_72b, recurrentgemma_9b, seamless_m4t_large_v2)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)

@@ -7,10 +7,11 @@
 The single-process engine (train/loop.py) on one device: the card by
 default, raising without one; ``--device cpu`` runs the plain torch path
 on the host. The CORE checkpoint layer is always on. ``--arch`` takes
-every id of the ssm, dense, vlm and moe families; one of a family not
-ported yet raises ``NotImplementedError`` naming ROADMAP queue 1, as do
-the reference's ``--mesh`` and ``--devices``, which wait for the mesh
-slice. Ends with ``done at step N; final loss X``.
+every id of the JAX package (the ssm, dense, vlm, moe, hybrid and
+encdec families; the encdec batches carry the pipeline's ``src_embed``
+frames). The reference's ``--mesh`` and ``--devices`` raise
+``NotImplementedError``: they wait for the mesh slice (ROADMAP queue 1).
+Ends with ``done at step N; final loss X``.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="a ported id (repro_torch.configs.PORTED): falcon_mamba_7b, the dense "
-                         "and vlm ids, olmoe_1b_7b, granite_moe_3b_a800m")
+                    help="an id of repro_torch.configs.ARCH_IDS (every family, e.g. "
+                         "falcon_mamba_7b, qwen2_72b, recurrentgemma_9b, seamless_m4t_large_v2)")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--global-batch", type=int, default=8)

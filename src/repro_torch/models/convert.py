@@ -1,10 +1,15 @@
 """Weights and optimizer state between the JAX package's layout and the
-port's models (``MambaLM`` for the ssm family, ``TransformerLM`` for
-dense and vlm), both ways.
+port's models (``MambaLM``, ``TransformerLM``, ``HybridLM``,
+``EncDecLM``), both ways.
 
-The reference stacks each layer leaf on a leading ``L`` axis; the port
-keeps one module per layer, so the axis is sliced into ``layers.<i>``,
-and a tree path ``a/b/c`` becomes the state dict key ``a.b.c``.
+The reference stacks each layer leaf of a layer stack (``layers``; the
+hybrid's ``groups``; the encdec's ``enc`` and ``dec``) on a leading axis;
+the port keeps one module per layer, so the axis is sliced into
+``layers.<i>`` (``groups.<i>``, ...), and a tree path ``a/b/c`` becomes
+the state dict key ``a.b.c``. The hybrid's ``tail`` is a list in the
+reference's tree, one unstacked block each (``tail/<i>/...``), and a
+``ModuleList`` in the port (``tail.<i>....``): its leaves keep their
+own shapes both ways.
 ``stacked_tree`` goes the other way, and ``load_stacked`` writes a
 stacked tree back into the layer modules: the optimizer works on the
 stacked layout (train/optimizer.py). The optimizer state itself is kept
@@ -27,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.registry import get_model
+from repro_torch.models.stack import tree_paths
 
 
 def to_tensor(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -55,33 +61,42 @@ def tree_to(tree, device, dtype: torch.dtype | None = None):
     return to_tensor(tree, device, dtype)
 
 
-def _flatten(tree: dict, prefix: str = ""):
-    for key, val in tree.items():
-        path = f"{prefix}{key}"
-        if isinstance(val, dict):
-            yield from _flatten(val, path + ".")
+STACKS = ("layers", "groups", "enc", "dec")  # stacked on a leading axis
+LISTS = ("tail",)  # a list of unstacked layers
+
+
+def _put(tree: dict, path: list, leaf) -> None:
+    """Set ``leaf`` at ``path`` (str keys of dicts, int indices of
+    lists), creating the containers on the way; a list grows in order."""
+    for key, nxt in zip(path[:-1], path[1:]):
+        child = [] if isinstance(nxt, int) else {}
+        if isinstance(key, int):
+            if key == len(tree):
+                tree.append(child)
+            tree = tree[key]
         else:
-            yield path, val
+            tree = tree.setdefault(key, child)
+    if isinstance(path[-1], int) and path[-1] == len(tree):
+        tree.append(leaf)
+    else:
+        tree[path[-1]] = leaf
 
 
-def _put(tree: dict, path: list[str], leaf) -> None:
-    for key in path[:-1]:
-        tree = tree.setdefault(key, {})
-    tree[path[-1]] = leaf
-
-
-def _get(tree: dict, path: list[str]):
+def _get(tree, path: list):
     for key in path:
         tree = tree[key]
     return tree
 
 
-def _split(name: str) -> tuple[list[str], int | None]:
+def _split(name: str) -> tuple[list, int | None]:
     """``layers.3.in_proj.w`` -> (["layers", "in_proj", "w"], 3);
+    ``tail.1.ln1.scale`` -> (["tail", 1, "ln1", "scale"], None);
     ``ln_f.scale`` -> (["ln_f", "scale"], None)."""
     parts = name.split(".")
-    if parts[0] == "layers":
-        return ["layers", *parts[2:]], int(parts[1])
+    if parts[0] in STACKS:
+        return [parts[0], *parts[2:]], int(parts[1])
+    if parts[0] in LISTS:
+        return [parts[0], int(parts[1]), *parts[2:]], None
     return parts, None
 
 
@@ -91,15 +106,14 @@ def from_jax(tree: dict, cfg: ArchConfig, *, device=None,
     as numpy leaves (``jax.tree.map(np.asarray, params)``), or
     ``stacked_tree``'s output. Returns the family's model on ``device``
     holding exactly those values (cast to ``dtype`` when given); its
-    parameters require grad when ``trainable``. An unported family
-    raises ``NotImplementedError`` (the registry's)."""
+    parameters require grad when ``trainable``."""
     model = get_model(cfg).init(cfg, None, device=device)
     state = {}
-    for path, leaf in _flatten(tree):
-        if path.startswith("layers."):
-            rest = path[len("layers."):]
-            for i in range(cfg.num_layers):
-                state[f"layers.{i}.{rest}"] = to_tensor(leaf[i], model.device, dtype)
+    for path, leaf in tree_paths(tree).items():
+        head, _, rest = path.partition(".")
+        if head in STACKS:
+            for i in range(leaf.shape[0]):
+                state[f"{head}.{i}.{rest}"] = to_tensor(leaf[i], model.device, dtype)
         else:
             state[path] = to_tensor(leaf, model.device, dtype)
     model.load_state_dict(state, strict=True, assign=True)
@@ -124,6 +138,9 @@ def stacked_tree(model: nn.Module, values=None) -> dict:
             per_layer.setdefault(tuple(path), []).append(leaf)
     for path, stack in per_layer.items():
         _put(tree, list(path), torch.stack(stack))
+    for name in LISTS:  # an empty list keeps its place in the tree
+        if isinstance(getattr(model, name, None), nn.ModuleList):
+            tree.setdefault(name, [])
     return tree
 
 

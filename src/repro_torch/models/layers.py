@@ -7,8 +7,9 @@ reference's tree path. Layouts are the reference's: a dense weight is
 ``(d_in, d_out)`` and is applied as ``x @ w``; an embedding is
 ``(vocab, d_model)``. Weights are bf16 by default, norm scales f32; the
 arithmetic follows the reference's dtype promotion (a bf16 activation
-plus an f32 bias is f32; ``dense`` rounds the bias to the product's
-dtype first, as the reference's ``b.astype(y.dtype)`` does).
+plus an f32 bias is f32; a bf16 activation times an f32 weight is an f32
+product; ``dense`` rounds the bias to the product's dtype first, as the
+reference's ``b.astype(y.dtype)`` does).
 
 Attention is the reference's, op for op (src/repro/models/layers.py):
 the train / prefill path walks ``fit_chunk(S, attn_chunk)`` query chunks
@@ -21,7 +22,8 @@ attention: ``einsum_f32`` follows the reference's non-TPU branch (the
 product in the operands' dtype, then upcast), which on the card is a
 bf16 product accumulated in float32 and rounded once. The reference's
 sequence-sharded decode (a ``shard_map`` flash combine) waits for the
-mesh slice, as does ``cross_attention`` for the encdec family.
+mesh slice. ``cross_attention`` (the encdec family) attends queries over
+a precomputed memory, unmasked and unchunked, as the reference does.
 """
 
 from __future__ import annotations
@@ -116,7 +118,7 @@ class Dense(nn.Module):
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    y = x @ w
+    y = x @ w if x.dtype == w.dtype else torch.matmul(*_promote(x, w))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -273,6 +275,20 @@ def attention_train(x, p: Attn, cfg: ArchConfig, ax: MeshAxes, positions=None,
         o = _attention_full_bidir(q, k, v, cfg)
     else:
         o = attention_core_train(q, k, v, cfg, ax)
+    return _dense_of(o, p.wo)
+
+
+def cross_attention(x, mem_k, mem_v, p: Attn, cfg: ArchConfig, ax: MeshAxes):
+    """x: (B, S, D) queries; mem_k / mem_v: (B, T, H, hd) precomputed.
+    f32 scores over every memory position (no mask, no chunks), softmax,
+    the weights cast to x's dtype, then the value product."""
+    b, s, _ = x.shape
+    q = _dense_of(x, p.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    scores = torch.einsum("bqhd,bthd->bhqt", *_promote(q, mem_k)).to(torch.float32)
+    scores.mul_(1.0 / math.sqrt(cfg.head_dim))
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    del scores
+    o = torch.einsum("bhqt,bthd->bqhd", *_promote(w, mem_v)).reshape(b, s, cfg.q_dim)
     return _dense_of(o, p.wo)
 
 

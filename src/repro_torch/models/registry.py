@@ -7,9 +7,9 @@
     logits, cache     = api.decode(params, token, cache, pos, cfg, ax, plan)
 
 ``batch`` is a dict with ``tokens`` (and ``labels``, an optional
-``loss_mask`` for ``loss``; ``patch_embed`` for vlm). The port serves
-and trains the ssm, dense, vlm and moe families; the hybrid and encdec
-families wait in ROADMAP queue 1.
+``loss_mask`` for ``loss``; ``patch_embed`` for vlm, ``src_embed`` for
+encdec). The port serves and trains all six families, so every one of
+the JAX package's ten ids resolves here.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models import mamba, moe, stack
+from repro_torch.models import encdec, mamba, moe, rglru, stack
 from repro_torch.models import transformer as T
 from repro_torch.models.shardings import SINGLE
 
@@ -34,7 +34,7 @@ class ModelApi:
     prefill: Callable  # (params, batch, cfg, ax, cache_len) -> (logits, cache)
     decode: Callable  # (params, token, cache, pos, cfg, ax, plan) -> (logits, cache)
     init_cache: Callable  # (cfg, batch, cache_len, *, device) -> cache
-    cache_shape: Callable  # (cfg, batch, cache_len) -> {name: TensorSpec}
+    cache_shape: Callable  # (cfg, batch, cache_len) -> a tree of TensorSpec
 
 
 # -- dense / vlm --------------------------------------------------------------
@@ -124,12 +124,43 @@ SSM = ModelApi(
     cache_shape=mamba.cache_shape,
 )
 
-_FAMILIES = {"dense": DENSE, "vlm": VLM, "moe": MOE, "ssm": SSM}
+
+# -- hybrid / encdec ----------------------------------------------------------
+
+
+def _hybrid_prefill(params, batch, cfg, ax, cache_len):
+    return rglru.prefill(params, batch["tokens"], cfg, ax, cache_len)
+
+
+HYBRID = ModelApi(
+    family="hybrid",
+    init=rglru.init_lm,
+    loss=rglru.lm_loss,
+    prefill=_hybrid_prefill,
+    decode=rglru.decode_step,
+    init_cache=rglru.init_cache,
+    cache_shape=rglru.cache_shape,
+)
+
+
+def _encdec_prefill(params, batch, cfg, ax, cache_len):
+    return encdec.prefill(params, batch["tokens"], cfg, ax, cache_len,
+                          src_embed=batch["src_embed"])
+
+
+ENCDEC = ModelApi(
+    family="encdec",
+    init=encdec.init_lm,
+    loss=encdec.lm_loss,
+    prefill=_encdec_prefill,
+    decode=encdec.decode_step,
+    init_cache=encdec.init_cache,
+    cache_shape=encdec.cache_shape,
+)
+
+_FAMILIES = {"dense": DENSE, "vlm": VLM, "moe": MOE, "ssm": SSM, "hybrid": HYBRID,
+             "encdec": ENCDEC}
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet (ROADMAP queue 1)"
-        )
     return _FAMILIES[cfg.family]

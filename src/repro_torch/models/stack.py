@@ -53,14 +53,49 @@ def scan_layers(body: Callable, x: torch.Tensor, layers: nn.ModuleList, *,
     return x
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists (and of ``rest``,
+    trees of the same structure), as ``jax.tree.map``; a tuple is a leaf
+    (the optimizer's int8 (q, scale) pair)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_paths(tree, prefix: str = "") -> dict:
+    """{path: leaf} of nested dicts and lists, each path the keys and
+    list indices on the way joined by dots (``tail.0.mix.lru.lam``): a
+    parameter tree's paths are its module's ``state_dict`` keys."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, list):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    return {path: leaf for key, sub in items
+            for path, leaf in tree_paths(sub, f"{prefix}.{key}" if prefix else str(key)).items()}
+
+
+def tree_leaves(tree) -> list:
+    """Leaves in ``jax.tree.leaves`` order: dict keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
 def scan_layers_with_cache(body: Callable, x: torch.Tensor, layers: nn.ModuleList,
-                           cache: dict | None):
+                           cache):
     """Fold ``body(x, layer, layer_cache) -> (x, new_layer_cache)`` over
-    the layers. ``cache`` holds tensors with a leading L (``None`` gives
-    every layer ``None``); returns x and the new caches stacked on L."""
+    the layers. ``cache`` is a tree (nested dicts and lists, as
+    ``lax.scan`` walks a pytree) of tensors with a leading L, or
+    ``None``, which gives every layer ``None``; returns x and the new
+    caches stacked on L in the same tree."""
     outs = []
     for i, layer in enumerate(layers):
-        lc = None if cache is None else {k: v[i] for k, v in cache.items()}
-        x, new = body(x, layer, lc)
+        x, new = body(x, layer, None if cache is None else tree_map(lambda t: t[i], cache))
         outs.append(new)
-    return x, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    return x, tree_map(lambda *ts: torch.stack(ts), *outs)

@@ -17,6 +17,7 @@ import numpy as np
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.registry import ModelApi
 from repro_torch.models.shardings import MeshAxes, ServePlan, make_serve_plan
+from repro_torch.models.stack import tree_leaves
 
 
 def plan_for(cfg: ArchConfig, ax: MeshAxes, batch: int, cache_len: int) -> ServePlan:
@@ -24,8 +25,10 @@ def plan_for(cfg: ArchConfig, ax: MeshAxes, batch: int, cache_len: int) -> Serve
 
 
 def cache_bytes(cfg: ArchConfig, api: ModelApi, batch: int, cache_len: int) -> int:
+    """Bytes of every leaf of the family's cache tree (the hybrid's
+    nests ``groups`` and a ``tail`` list)."""
     specs = api.cache_shape(cfg, batch, cache_len)
-    return sum(math.prod(s.shape) * s.dtype.itemsize for s in specs.values())
+    return sum(math.prod(s.shape) * s.dtype.itemsize for s in tree_leaves(specs))
 
 
 @dataclass

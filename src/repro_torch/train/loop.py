@@ -10,9 +10,8 @@ the reference's layout (``models.convert.to_reference_tree``, the
 stacked optimizer state and the step), so the byte stream, the group
 matrices and the checksums are the reference's for the same state;
 ``restore_latest`` decodes it through failed nodes and rebuilds a
-``TrainState`` on the device. Every family the registry serves trains
-(ssm, dense, vlm and moe); any other raises ``NotImplementedError``
-naming ROADMAP queue 1, from ``configs.get_config`` or ``get_model``.
+``TrainState`` on the device. Every family trains (ssm, dense, vlm,
+moe, hybrid and encdec; the pipeline feeds the encdec's ``src_embed``).
 The reference's ``mesh`` (and ``place_state``) waits for the mesh
 slice.
 """

@@ -31,6 +31,8 @@ from dataclasses import dataclass
 import torch
 from torch.nn import functional as F
 
+from repro_torch.models.stack import tree_leaves, tree_map
+
 
 @dataclass(frozen=True)
 class OptConfig:
@@ -82,20 +84,6 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape, block: int) -> torc
 
 
 # -- state --------------------------------------------------------------------
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts (and of ``rest``, trees of
-    the same structure); a (q, scale) tuple is a leaf."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    return [tree]
 
 
 def init_opt_state(params: dict, c: OptConfig) -> dict:

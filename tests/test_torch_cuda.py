@@ -5,8 +5,10 @@ device path against its CPU path, byte for byte; the selective scan (K8)
 against its plain version at rtol = atol = 2e-5 (y) and bit for bit
 (h_last), over both of its bodies, and its refusal of an operand that
 requires grad; one reduced falcon-mamba, qwen2 or olmoe train step on the
-card against the CPU; a reduced starcoder2 or olmoe f32 prefill and decode
-on the card against the CPU. Every test is marked
+card against the CPU; a reduced starcoder2, olmoe, recurrentgemma or
+seamless-m4t f32 prefill and decode on the card against the CPU; the
+RG-LRU scan's K8 route at N = 1 against K8's plain version and against
+its associative-scan route. Every test is marked
 ``cuda`` and skips without a CUDA device (the kernels are CUDA C++ and
 have no CPU mode). Imports nothing of JAX, so it runs where the port
 runs:
@@ -355,3 +357,102 @@ def test_reduced_dense_prefill_decode_card_matches_cpu(arch, card, monkeypatch):
                                        atol=1e-4)
         nxt = step["cpu"][0].argmax(-1, keepdim=True)
     assert sum(_build.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "seamless_m4t_large_v2"])
+def test_reduced_hybrid_encdec_prefill_decode_card_matches_cpu(arch, card, monkeypatch):
+    """The reduced recurrentgemma (one (rec, rec, attn) group and a rec
+    tail, an 80-token prompt over its 64-slot window) or seamless-m4t
+    (2 + 2 layers, 8 encoder frames) in float32, TF32 off, from the same
+    weights on the card and on the CPU, with the tolerances of
+    ``test_reduced_dense_prefill_decode_card_matches_cpu`` over every
+    leaf of the cache tree. The hybrid prefill launches K8 once per rec
+    block (3) and its decode none; the encdec path none."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import convert
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+    from repro_torch.models.stack import tree_map, tree_paths
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = get_config(arch).reduced()
+    api = get_model(cfg)
+    cpu = api.init(cfg, 0, device="cpu", dtype=torch.float32)
+    models = {"cpu": cpu, "cuda": convert.from_jax(convert.to_reference_tree(cpu), cfg,
+                                                   device=card)}
+    rng = np.random.default_rng(0)
+    s = 80 if cfg.family == "hybrid" else 64
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, s)))}
+    if cfg.family == "encdec":
+        frames = rng.standard_normal((2, cfg.num_stub_tokens, cfg.d_model)).astype(np.float32)
+        batch["src_embed"] = torch.from_numpy(frames).to(torch.bfloat16)
+    _build.reset_launches()
+    out = {dev: api.prefill(m, {k: v.to(m.device) for k, v in batch.items()}, cfg, SINGLE,
+                            128) for dev, m in models.items()}
+    want_k8 = 3 if cfg.family == "hybrid" else 0
+    assert _build.LAUNCHES["selective_scan"] == want_k8
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0], rtol=1e-4, atol=1e-4)
+    card_cache, cpu_cache = tree_paths(out["cuda"][1]), tree_paths(out["cpu"][1])
+    assert set(card_cache) == set(cpu_cache)
+    for name, want in cpu_cache.items():
+        got = card_cache[name].cpu()
+        assert got.dtype == want.dtype, name
+        bad = ~torch.isclose(got.float(), want.float(), rtol=1e-4, atol=1e-4)
+        if got.dtype == torch.bfloat16:
+            flips = bad & _bf16_neighbours(got, want)
+            assert int(flips.sum()) <= 1e-3 * got.numel(), name
+            bad &= ~flips
+        assert not bad.any(), name
+    f32 = tree_map(lambda t: t.float(), out["cpu"][1])
+    caches = {"cpu": f32, "cuda": tree_map(lambda t: t.to(card), f32)}
+    nxt = out["cpu"][0].argmax(-1, keepdim=True)
+    for pos in (s, s + 1):
+        step = {}
+        for dev, m in models.items():
+            step[dev] = api.decode(m, nxt.to(m.device), caches[dev], pos, cfg, SINGLE, None)
+            caches[dev] = step[dev][1]
+        torch.testing.assert_close(step["cuda"][0].cpu(), step["cpu"][0], rtol=1e-4, atol=1e-4)
+        card_cache, cpu_cache = tree_paths(step["cuda"][1]), tree_paths(step["cpu"][1])
+        for name, want in cpu_cache.items():
+            torch.testing.assert_close(card_cache[name].cpu(), want, rtol=1e-4, atol=1e-4)
+        nxt = step["cpu"][0].argmax(-1, keepdim=True)
+    assert _build.LAUNCHES["selective_scan"] == want_k8
+    assert sum(_build.LAUNCHES.values()) == want_k8
+
+
+@pytest.mark.cuda
+def test_hybrid_k8_route_matches_plain(card):
+    """The RG-LRU scan's K8 route at N = 1 (da = a, dbu = b, cm = 1) on
+    the card, at recurrentgemma-9b's width (4096) over 512 steps from
+    h0: the kernel's y and h_last against K8's plain version on the same
+    operands (y within 2e-5, h_last bit-equal), and ``rglru_scan``
+    without grad (one launch) against its associative-scan route under
+    grad (no launch) within 2e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+    from repro_torch.models import rglru
+
+    cfg = get_config("recurrentgemma_9b")
+    gen = torch.Generator(device=card).manual_seed(3)
+    p = rglru.RgLru(cfg, gen, torch.float32, card)
+    x = torch.randn((1, 512, cfg.lru_width), generator=gen, device=card)
+    h0 = torch.randn((1, cfg.lru_width), generator=gen, device=card)
+    log_a, gated = rglru._gates(x, p, cfg)
+    a = torch.exp(log_a).reshape(1, 512, -1, 1)
+    b = (torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * gated)
+    b = b.reshape(1, 512, -1, 1)
+    ones = torch.ones((1, 512, 1), device=card)
+    y, h = selective_scan(a, b, ones, h0=h0[..., None], return_state=True)
+    want_y, want_h = selective_scan_plain(a, b, ones, h0[..., None])
+    torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+    assert torch.equal(h, want_h)
+
+    _build.reset_launches()
+    with torch.no_grad():
+        ky, kh = rglru.rglru_scan(x, p, cfg, h0)
+    assert _build.LAUNCHES["selective_scan"] == 1
+    gy, gh = rglru.rglru_scan(x.clone().requires_grad_(True), p, cfg, h0)
+    assert _build.LAUNCHES["selective_scan"] == 1 and gy.requires_grad
+    torch.testing.assert_close(ky, gy.detach(), rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(kh, gh.detach(), rtol=2e-5, atol=2e-5)

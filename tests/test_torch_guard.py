@@ -102,6 +102,8 @@ def _entry_points():
     cfg = get_config("falcon_mamba_7b").reduced()
     dense = get_config("starcoder2_15b").reduced()
     moe_cfg = get_config("olmoe_1b_7b").reduced()
+    hybrid = get_config("recurrentgemma_9b").reduced()
+    encdec_cfg = get_config("seamless_m4t_large_v2").reduced()
     objs = np.zeros((3, 6, 16), dtype=np.uint8)
     return {
         "resolve_device": lambda: resolve_device(None),
@@ -136,6 +138,13 @@ def _entry_points():
         "trainer_dense": lambda: Trainer(dense, LoopConfig()),
         "launch_train_moe": lambda: train.main(["--arch", "olmoe_1b_7b", "--reduced",
                                                 "--steps", "1"]),
+        "hybrid_init": lambda: get_model(hybrid).init(hybrid, 0),
+        "hybrid_init_cache": lambda: get_model(hybrid).init_cache(hybrid, 2, 16),
+        "encdec_init": lambda: get_model(encdec_cfg).init(encdec_cfg, 0),
+        "encdec_init_cache": lambda: get_model(encdec_cfg).init_cache(encdec_cfg, 2, 16),
+        "launch_serve_hybrid": lambda: serve.main(["--arch", "recurrentgemma_9b", "--reduced"]),
+        "launch_train_encdec": lambda: train.main(["--arch", "seamless_m4t_large_v2",
+                                                   "--reduced", "--steps", "1"]),
     }
 
 
@@ -144,7 +153,9 @@ def _entry_points():
              "gateway", "mamba_lm", "init_lm", "init_cache", "launch_serve", "device_batch",
              "init_state", "trainer", "launch_train", "transformer_lm", "dense_init_cache",
              "dense_prefill", "launch_serve_dense", "moe_init",
-             "launch_serve_moe", "trainer_dense", "launch_train_moe"]
+             "launch_serve_moe", "trainer_dense", "launch_train_moe", "hybrid_init",
+             "hybrid_init_cache", "encdec_init", "encdec_init_cache", "launch_serve_hybrid",
+             "launch_train_encdec"]
 )
 def test_default_device_raises_without_cuda(name, monkeypatch):
     """No silent CPU fallback: the default device is the card."""
@@ -156,26 +167,16 @@ def test_default_device_raises_without_cuda(name, monkeypatch):
 @pytest.mark.parametrize("arch", ["starcoder2_15b", "pixtral_12b"])
 def test_training_a_dense_arch_waits_for_its_slice(arch):
     """Its slice has come: ``Trainer`` takes the dense and vlm ids (and
-    the moe ones) on the CPU when asked, with their family's model; an id
-    of a family not ported yet still raises, naming ROADMAP queue 1,
-    from ``configs.get_config`` before anything is built, and the
-    launcher through it."""
-    import dataclasses
-
+    every other family's, the hybrid and encdec ones last) on the CPU
+    when asked, with their family's model; no family is left to refuse."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import train
     from repro_torch.models.registry import get_model
     from repro_torch.train.loop import LoopConfig, Trainer
 
-    cfg = get_config(arch).reduced()
-    tr = Trainer(cfg, LoopConfig(), device="cpu")
-    assert tr.api is get_model(cfg) and tr.dev == torch.device("cpu")
-    waits = "not ported yet \\(ROADMAP queue 1\\)"
-    with pytest.raises(NotImplementedError, match=waits):
-        train.main(["--arch", "recurrentgemma_9b", "--reduced", "--steps", "1",
-                    "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        Trainer(dataclasses.replace(cfg, family="hybrid"), LoopConfig(), device="cpu")
+    for name in (arch, "recurrentgemma_9b", "seamless_m4t_large_v2"):
+        cfg = get_config(name).reduced()
+        tr = Trainer(cfg, LoopConfig(), device="cpu")
+        assert tr.api is get_model(cfg) and tr.dev == torch.device("cpu")
 
 
 def test_cpu_is_taken_only_when_asked():

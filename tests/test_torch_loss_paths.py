@@ -3,8 +3,12 @@ on the loss's special paths: command-r's tied embedding (the (V, d)
 ``embed`` applied transposed as the head), pixtral's patch-embedding
 prefix (its positions run through the layers and take no loss),
 mistral-large at ``reduced(num_layers=8, remat_block=2)``, whose layers
-take the two-level remat (four blocks of two), and granite-moe's tied
-embedding under the moe loss's own fold (the aux carried through it). The plain path is in
+take the two-level remat (four blocks of two), granite-moe's tied
+embedding under the moe loss's own fold (the aux carried through it),
+and seamless-m4t's encoder memory (the decoder's cross-attention over
+the encoded ``src_embed`` frames, gradients reaching the encoder
+through it; the float32 reference as tests/torch_model_cases.py
+composes it). The plain path is in
 tests/test_torch_model_grads.py, with the same weights, batch and
 tolerances: the loss within rtol = atol = 1e-4, each gradient leaf
 within 1e-3 of its max |ref|. The two-level remat's loss and gradients
@@ -26,7 +30,8 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.shardings import SINGLE  # noqa: E402
 
-CASES = ("command_r_35b", "pixtral_12b", "mistral_large_123b/8L-block2", "granite_moe_3b_a800m")
+CASES = ("command_r_35b", "pixtral_12b", "mistral_large_123b/8L-block2", "granite_moe_3b_a800m",
+         "seamless_m4t_large_v2")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -57,9 +62,11 @@ def test_tied_and_prefix_cases_take_their_paths():
     tied, _ = C.cfgs("command_r_35b")
     vlm, _ = C.cfgs("pixtral_12b")
     tied_moe, _ = C.cfgs("granite_moe_3b_a800m")
+    encdec, _ = C.cfgs("seamless_m4t_large_v2")
     assert tied.tie_embeddings and vlm.family == "vlm" and vlm.num_stub_tokens == 8
     assert tied_moe.tie_embeddings and tied_moe.family == "moe"
     assert "patch_embed" in C.batch(vlm)[0]
+    assert encdec.family == "encdec" and C.batch(encdec)[0]["src_embed"].shape == (C.B, 8, 128)
     assert C.cfgs("mistral_large_123b/8L-block2")[0].remat_block == 2
 
 

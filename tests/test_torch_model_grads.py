@@ -2,10 +2,12 @@
 the loss half of tests/test_models.py's ``test_arch_smoke_loss``,
 comparing values where the reference checks finiteness, for the ids
 whose loss takes the plain path (an untied head, no prefix, per-layer
-remat): falcon-mamba (ssm), qwen2, mistral-large, starcoder2 and
+remat): falcon-mamba (ssm), qwen2, mistral-large, starcoder2,
 olmoe (moe: the loss adds 0.01 x the layers' mean load-balance aux, and
-the gradients reach the router through the gates and the aux) at
-``reduced()``. The tied head, the vlm prefix and the two-level remat
+the gradients reach the router through the gates and the aux) and
+recurrentgemma (hybrid: one (rec, rec, attn) group under remat, then
+its unstacked rec tail; the RG-LRU trained through the associative
+scan) at ``reduced()``. The tied head, the vlm prefix and the two-level remat
 are in tests/test_torch_loss_paths.py; prefill and decode in
 tests/test_torch_models.py.
 
@@ -23,7 +25,8 @@ pytest.importorskip("torch")
 import torch  # noqa: E402
 import torch_model_cases as C  # noqa: E402
 
-CASES = ("falcon_mamba_7b", "qwen2_72b", "mistral_large_123b", "starcoder2_15b", "olmoe_1b_7b")
+CASES = ("falcon_mamba_7b", "qwen2_72b", "mistral_large_123b", "starcoder2_15b", "olmoe_1b_7b",
+         "recurrentgemma_9b")
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -2,13 +2,17 @@
 tests/test_models.py, comparing values where the reference checks
 shapes and finiteness.
 
-Every ported id (the ssm falcon-mamba, the dense / vlm qwen2,
-mistral-large, starcoder2, command-r and pixtral, and the moe olmoe and
-granite-moe) at ``reduced()``, with
-the JAX package's ``init`` weights carried across by
-``models.convert.from_jax``; batch 2, prompt 64, cache 128, and for
-pixtral an 8-token ``patch_embed`` prefix. Tolerances, set from the
-dtypes before the runs:
+Every id (the ssm falcon-mamba, the dense / vlm qwen2, mistral-large,
+starcoder2, command-r and pixtral, the moe olmoe and granite-moe, the
+hybrid recurrentgemma and the encdec seamless-m4t) at ``reduced()``,
+with the JAX package's ``init`` weights carried across by
+``models.convert.from_jax``; batch 2, prompt 64, cache 128, for pixtral
+an 8-token ``patch_embed`` prefix and for seamless 8 encoder frames
+(``src_embed``). The caches are compared leaf by leaf over their trees
+(the hybrid's nests ``groups`` and a ``tail`` list). The encdec
+reference runs in float32 as tests/torch_model_cases.py says: its own
+``encode`` raises there. Tolerances, set from the dtypes before the
+runs:
 
 - float32 (the weights cast in both packages): the prefill logits
   within rtol = atol = 1e-4. The dense cache is bf16 whatever the compute
@@ -28,7 +32,8 @@ dtypes before the runs:
   measured up to 1.78e-2, qwen2's second decode logits). The ssm id
   drifts further on these prompts, its f32 SSM state carried from bf16
   activations (measured up to 3.11e-2, the second decode's state; its
-  own twin holds 2e-2 on other prompts), and is held to 4e-2. A moe
+  own twin holds 2e-2 on other prompts), and is held to 4e-2, as is the
+  hybrid id (its f32 LRU state carried from bf16 activations too). A moe
   layer routes each token to the top k of its bf16 router logits, so
   where the packages' roundings upstream part a near tie a token goes
   to another expert, and every tensor downstream moves by that expert's
@@ -47,8 +52,7 @@ dtypes before the runs:
   cache layers 2-3 and the logits. In float32 no routing may differ.
 
 The reference's ``test_decode_matches_prefill_dense`` runs on both
-packages, and the two ids of the families not ported yet (hybrid and
-encdec) raise ``NotImplementedError``. The loss and gradients of the same ids are in
+packages. The loss and gradients of the same ids are in
 tests/test_torch_model_grads.py; the cases and checks both files share
 are in tests/torch_model_cases.py.
 """
@@ -73,6 +77,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.models.shardings import SINGLE  # noqa: E402
+from repro_torch.models.stack import tree_paths  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -100,16 +105,16 @@ def serve_runs():
         batch, jbatch = C.batch(cfg)
         batch.pop("labels"), jbatch.pop("labels")
         for dtype in ("float32", "bfloat16"):
-            with C.recorded_routes() as routes:
-                jprefill = jax.jit(lambda p, b, api_j=api_j, cfg_j=cfg_j:
-                                   api_j.prefill(p, b, cfg_j, JSINGLE, C.CACHE_LEN))
-                jdecode = jax.jit(lambda p, t, c, pos, api_j=api_j, cfg_j=cfg_j:
-                                  api_j.decode(p, t, c, pos, cfg_j, JSINGLE, JServePlan()))
+            with C.recorded_routes() as routes, C.reference(cfg_j, dtype) as run:
+                jprefill = run(lambda p, b, api_j=api_j, cfg_j=cfg_j:
+                               api_j.prefill(p, b, cfg_j, JSINGLE, C.CACHE_LEN))
+                jdecode = run(lambda p, t, c, pos, api_j=api_j, cfg_j=cfg_j:
+                              api_j.decode(p, t, c, pos, cfg_j, JSINGLE, JServePlan()))
                 p = C.ref_params(arch, dtype)
                 model = convert.from_jax(jax.tree.map(np.asarray, p), cfg, device="cpu")
                 jl, jc = jprefill(p, jbatch)
                 pl, pc = api.prefill(model, batch, cfg, SINGLE, C.CACHE_LEN)
-                pos = C.S + cfg.num_stub_tokens
+                pos = C.S + C.prefix_len(cfg)
                 steps = {"prefill": ((pl, pc), (jl, jc))}
                 flips = {"prefill": C.route_flips(routes)}
                 margins = C.first_flip_margins(routes)
@@ -117,7 +122,7 @@ def serve_runs():
                                                     C.B, pos, C.CACHE_LEN)}
                 if dtype == "float32":
                     jc = jax.tree.map(lambda a: a.astype(jnp.float32), jc)
-                    pc = {k: torch.from_numpy(np.array(v)) for k, v in jc.items()}
+                    pc = C.to_torch(jc)
                 for i in range(2):
                     routes["port"].clear(), routes["ref"].clear()
                     nxt = np.array(jnp.argmax(jl, axis=-1), np.int32)[:, None]
@@ -144,6 +149,7 @@ def test_serve_steps_match_jax(arch, step, dtype, serve_runs):
     cfg = C.cfgs(arch)[0]
     assert logits.shape == (C.B, cfg.vocab_size)
     assert str(logits.dtype).removeprefix("torch.") == str(jlogits.dtype)
+    cache, jcache = tree_paths(cache), tree_paths(jcache)
     assert set(cache) == set(jcache)
     for name, leaf in cache.items():
         assert str(leaf.dtype).removeprefix("torch.") == str(jcache[name].dtype), name
@@ -175,9 +181,9 @@ def test_serve_steps_match_jax(arch, step, dtype, serve_runs):
 @pytest.mark.parametrize("arch", C.PORTED_IDS)
 def test_cache_shape_matches_jax(arch):
     cfg, cfg_j = C.cfgs(arch)
-    want = jax_get_model(cfg_j).cache_shape(cfg_j, C.B, C.CACHE_LEN)
-    got = get_model(cfg).cache_shape(cfg, C.B, C.CACHE_LEN)
-    cache = get_model(cfg).init_cache(cfg, C.B, C.CACHE_LEN, device="cpu")
+    want = tree_paths(jax_get_model(cfg_j).cache_shape(cfg_j, C.B, C.CACHE_LEN))
+    got = tree_paths(get_model(cfg).cache_shape(cfg, C.B, C.CACHE_LEN))
+    cache = tree_paths(get_model(cfg).init_cache(cfg, C.B, C.CACHE_LEN, device="cpu"))
     assert set(got) == set(want) == set(cache)
     for k, spec in got.items():
         assert spec.shape == want[k].shape
@@ -215,14 +221,6 @@ def test_decode_matches_prefill_dense():
     np.testing.assert_allclose(C.to_np(ld), C.to_np(lp2), rtol=0.05, atol=0.05)
     C.assert_bf16_close(ld, jld)
     C.assert_bf16_close(lp2, jlp2)
-
-
-@pytest.mark.parametrize("arch", C.UNPORTED_IDS)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        get_model(jconfigs.get_config(arch))
 
 
 @pytest.mark.parametrize("arch", C.PORTED_IDS)

@@ -1,6 +1,5 @@
 """Numerics oracles for the chunked and scanned paths, on both packages:
-the twin of tests/test_scan_oracles.py (its rglru case waits for the
-hybrid family). Each case runs the reference's oracle on the JAX
+the twin of tests/test_scan_oracles.py. Each case runs the reference's oracle on the JAX
 package and the same oracle, in torch, on the port, from the same
 numpy-seeded inputs, and holds the two packages' results together.
 
@@ -24,10 +23,11 @@ from hypothesis import strategies as st  # noqa: E402
 from repro import configs as jconfigs  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import mamba as jmamba  # noqa: E402
+from repro.models import rglru as jrglru  # noqa: E402
 from repro.models.shardings import SINGLE as JSINGLE  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models import mamba  # noqa: E402
+from repro_torch.models import mamba, rglru  # noqa: E402
 from repro_torch.models.shardings import SINGLE  # noqa: E402
 
 
@@ -125,6 +125,44 @@ def test_mamba_chunked_scan_matches_sequential(s, chunk):
     np.testing.assert_allclose(jgot, want, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(got, jgot, rtol=2e-4, atol=2e-4)
+
+
+@settings(max_examples=8, deadline=None)
+@given(s=st.sampled_from([5, 12, 33]), chunk=st.sampled_from([4, 16]),
+       grad=st.sampled_from([False, True]))
+def test_rglru_scan_matches_stepwise(s, chunk, grad):
+    """The reference's oracle: ``rglru_scan`` over the prompt equals
+    ``rglru_step`` token by token (2e-4). The port's scan takes K8's
+    route (its plain version here) without grad and the reference's
+    chunked associative scan with it; both are held to the reference's
+    scan and to the port's own steps."""
+    cfg_j = jconfigs.get_config("recurrentgemma_9b").reduced(scan_chunk=chunk)
+    cfg = configs.get_config("recurrentgemma_9b").reduced(scan_chunk=chunk)
+    jp = jrglru.init_rglru(jax.random.PRNGKey(3), cfg_j, dtype=jnp.float32)
+    x = np.random.default_rng(4).standard_normal((2, s, cfg.lru_width)).astype(np.float32)
+
+    jys, _ = jrglru.rglru_scan(jnp.asarray(x), jp, cfg_j)
+    h, outs = jnp.zeros((2, cfg.lru_width), jnp.float32), []
+    for t in range(s):
+        y1, h = jrglru.rglru_step(jnp.asarray(x[:, t : t + 1]), jp, cfg_j, h)
+        outs.append(y1)
+    jwant = np.asarray(jnp.concatenate(outs, axis=1))
+    np.testing.assert_allclose(np.asarray(jys), jwant, rtol=2e-4, atol=2e-4)
+
+    p = rglru.RgLru(cfg, None, torch.float32, "cpu")
+    p.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in jp.items()})
+    tx = torch.from_numpy(x).requires_grad_(grad)
+    ys, _ = rglru.rglru_scan(tx, p, cfg)
+    assert ys.requires_grad == grad
+    th, touts = torch.zeros((2, cfg.lru_width)), []
+    with torch.no_grad():
+        for t in range(s):
+            y1, th = rglru.rglru_step(tx[:, t : t + 1], p, cfg, th)
+            touts.append(y1)
+    want = torch.cat(touts, dim=1).numpy()
+    np.testing.assert_allclose(ys.detach().numpy(), want, rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(ys.detach().numpy(), np.asarray(jys), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(want, jwant, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("window", [None, 6])

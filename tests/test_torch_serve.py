@@ -2,8 +2,10 @@
 continuous-batching loop, the SlotManager, cache sizing, greedy sampling
 and the config registry.
 
-The serve loop runs the reduced falcon-mamba, and the reduced starcoder2
-(the dense family), on the same float32 weights (the JAX package's
+The serve loop runs the reduced falcon-mamba, the reduced starcoder2
+(the dense family), and the reduced recurrentgemma (hybrid) and
+seamless-m4t (encdec, decoding against the zero memory of its
+``init_cache`` as the reference's launcher does), on the same float32 weights (the JAX package's
 ``init_lm``, cast, carried across by ``models/convert.py``) and the same
 prompts (drawn as the JAX launcher draws them): every request must
 generate the same tokens. The
@@ -125,6 +127,29 @@ def test_serve_loop_generates_the_references_tokens_dense(one_thread):
     assert len(want) == REQUESTS and all(len(g) == MAX_NEW for _, g in want)
 
 
+@pytest.mark.parametrize("arch", ["recurrentgemma_9b", "seamless_m4t_large_v2"])
+def test_serve_loop_generates_the_references_tokens_hybrid_encdec(arch, one_thread):
+    """The same loop on the hybrid's nested cache (conv and LRU states,
+    a 64-slot window ring that the 12 positions never wrap) and on the
+    encdec's self-attention cache beside its zero cross-attention memory."""
+    cfg_j = jconfigs.get_config(arch).reduced()
+    cfg = configs.get_config(arch).reduced()
+    rng = jax.random.PRNGKey(0)
+    api_j = jax_get_model(cfg_j)
+    params = jax.tree.map(lambda a: a.astype(jnp.float32), api_j.init(cfg_j, rng))
+    prompts = [
+        np.asarray(jax.random.randint(jax.random.fold_in(rng, rid), (PROMPT,), 0,
+                                      cfg_j.vocab_size), np.int32)
+        for rid in range(REQUESTS)
+    ]
+    want = [(r.rid, r.generated) for r in _jax_serve(params, prompts, cfg_j)]
+    model = convert.from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    got = serve_requests(get_model(cfg), model, cfg, prompts, batch=BATCH,
+                         max_new=MAX_NEW, cache_len=CACHE_LEN)
+    assert [(r.rid, r.generated) for r in got] == want
+    assert len(want) == REQUESTS and all(len(g) == MAX_NEW for _, g in want)
+
+
 def _state(mgr):
     return (
         [None if r is None else r.rid for r in mgr.slots],
@@ -157,11 +182,16 @@ def test_slot_manager_is_the_references(seed):
         assert _state(port) == _state(ref)
 
 
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_9b",
+                                  "seamless_m4t_large_v2"])
 @pytest.mark.parametrize("reduced", [True, False])
 @pytest.mark.parametrize("batch,cache_len", [(1, 128), (4, 128), (128, 32768)])
-def test_cache_bytes(reduced, batch, cache_len):
-    cfg, cfg_j = (CFG, CFG_J) if reduced else (configs.get_config("falcon_mamba_7b"),
-                                               jconfigs.get_config("falcon_mamba_7b"))
+def test_cache_bytes(reduced, batch, cache_len, arch):
+    """Over the ssm's flat cache, the hybrid's nested one (a window ring
+    shorter than the context at full width) and the encdec's four leaves."""
+    cfg, cfg_j = configs.get_config(arch), jconfigs.get_config(arch)
+    if reduced:
+        cfg, cfg_j = cfg.reduced(), cfg_j.reduced()
     assert (kvcache.cache_bytes(cfg, get_model(cfg), batch, cache_len)
             == jkv.cache_bytes(cfg_j, jax_get_model(cfg_j), batch, cache_len))
 
@@ -177,29 +207,25 @@ def test_greedy_sample_takes_the_first_maximum(seed):
 
 @pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_config_registry(arch):
-    """The reference's ids; the ported families (ssm, dense, vlm, moe)
-    resolve to the reference's config and family and train through the
-    loss of the reference's name and module (their family's ``lm_loss``;
-    the registry's ``_moe_loss``), the others raise until their slice."""
-    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
-    want = jconfigs.get_config(arch)
-    if arch in configs.PORTED:
-        from repro_torch.models import mamba, transformer
+    """The reference's ids, every one ported: each resolves to the
+    reference's config and family and trains through the loss of the
+    reference's name and module (its family's ``lm_loss``; the
+    registry's ``_moe_loss``)."""
+    from repro_torch.models import encdec, mamba, rglru, transformer
 
-        cfg = configs.get_config(arch.replace("_", "-"))
-        assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
-        assert get_model(cfg).family == jax_get_model(want).family
-        loss, ref_loss = get_model(cfg).loss, jax_get_model(want).loss
-        if want.family != "moe":
-            family_module = mamba if want.family == "ssm" else transformer
-            assert loss is family_module.lm_loss
-        assert loss.__name__ == ref_loss.__name__
-        assert loss.__module__.rsplit(".", 1)[-1] == ref_loss.__module__.rsplit(".", 1)[-1]
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            configs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            get_model(want)
+    assert configs.ARCH_IDS == jconfigs.ARCH_IDS
+    assert configs.PORTED == configs.ARCH_IDS
+    want = jconfigs.get_config(arch)
+    cfg = configs.get_config(arch.replace("_", "-"))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(want)
+    assert get_model(cfg).family == jax_get_model(want).family
+    loss, ref_loss = get_model(cfg).loss, jax_get_model(want).loss
+    if want.family != "moe":
+        family_module = {"ssm": mamba, "hybrid": rglru, "encdec": encdec}.get(want.family,
+                                                                             transformer)
+        assert loss is family_module.lm_loss
+    assert loss.__name__ == ref_loss.__name__
+    assert loss.__module__.rsplit(".", 1)[-1] == ref_loss.__module__.rsplit(".", 1)[-1]
     with pytest.raises(KeyError):
         configs.get_config("no_such_arch")
 
@@ -216,10 +242,11 @@ def test_launcher_serves_on_the_cpu_when_asked():
     assert "served 3 requests, 9 tokens" in proc.stdout
 
 
-def test_launcher_serves_a_dense_arch_on_the_cpu():
+@pytest.mark.parametrize("arch", ["qwen2_72b", "recurrentgemma_9b", "seamless_m4t_large_v2"])
+def test_launcher_serves_a_dense_arch_on_the_cpu(arch):
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2_72b",
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
          "--reduced", "--device", "cpu", "--requests", "3", "--batch", "2",
          "--prompt-len", "6", "--max-new", "3"],
         capture_output=True, text=True, cwd=ROOT, env=env, timeout=300,

@@ -3,8 +3,8 @@ runtime (``repro_torch.train.elastic``) on tests/test_train_serve.py's
 cases, the data pipeline (``batch_at`` equal bit for bit to the
 reference's for hypothesis-drawn (seed, step), the vlm and encdec stub
 branches included; ``device_batch``; ``shapes_for_cell``), and the
-training launcher in a subprocess on the CPU (falcon-mamba, qwen2 and
-olmoe). The train step, the loop
+training launcher in a subprocess on the CPU (falcon-mamba, qwen2,
+olmoe, recurrentgemma and seamless-m4t). The train step, the loop
 and its checkpoints are in tests/test_torch_train.py.
 """
 
@@ -47,7 +47,8 @@ def _bits(leaf) -> bytes:
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "qwen2_72b", "olmoe_1b_7b"])
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "qwen2_72b", "olmoe_1b_7b",
+                                  "recurrentgemma_9b", "seamless_m4t_large_v2"])
 def test_launcher_trains_on_the_cpu(arch):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(

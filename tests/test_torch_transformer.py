@@ -13,8 +13,6 @@ one-ulp neighbours (see tests/test_torch_models.py). Weight conversion
 and the layer remat are bit for bit.
 """
 
-import dataclasses
-
 import pytest
 
 pytest.importorskip("torch")
@@ -387,9 +385,3 @@ def test_from_jax_then_to_reference_tree_is_bit_exact(arch):
             np.testing.assert_array_equal(got.numpy(), ref)
         if keys[-1] in ("scale", "bias", "b"):
             np.testing.assert_array_equal(mine.numpy(), ref)
-
-
-def test_from_jax_refuses_unported_families():
-    cfg = dataclasses.replace(configs.get_config("qwen2_72b").reduced(), family="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        convert.from_jax({}, cfg, device="cpu")

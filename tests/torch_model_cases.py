@@ -2,7 +2,19 @@
 tests/test_torch_model_grads.py and tests/test_torch_loss_paths.py: the
 ported ids at ``reduced()``, the numpy-seeded batch for both packages,
 the reference's ``init`` drawn once per process, the loss and gradient
-runs of both packages, and the checks and tolerances those files state."""
+runs of both packages, the cache trees as flat leaves, and the checks
+and tolerances those files state.
+
+The encdec reference in float32: the reference's ``encode`` casts the
+frames to bf16, so with float32 weights its first layer's residual
+promotes to float32 and its ``lax.scan`` raises ``TypeError`` (the carry
+changes dtype). ``reference`` then swaps in ``unrolled_encode``, the
+same layer body applied layer by layer, and runs the reference op by op
+rather than under ``jit``: XLA's excess-precision rewrite would skip the
+bf16 rounding of that first layer's layernorm output, which the port and
+the reference's own ops both make. Everything else of the reference
+(the decoder, the cross-attention, the cache, ``chunked_xent``) is its
+own code."""
 
 import contextlib
 import functools
@@ -13,6 +25,8 @@ import numpy as np
 import torch
 
 from repro import configs as jconfigs
+import repro.models.encdec as jencdec
+import repro.models.layers as jlayers
 import repro.models.moe as jmoe
 from repro.models.registry import get_model as jax_get_model
 from repro.models.shardings import SINGLE as JSINGLE
@@ -20,13 +34,15 @@ from repro_torch import configs
 from repro_torch.models import convert, moe
 from repro_torch.models.registry import get_model
 from repro_torch.models.shardings import SINGLE
+from repro_torch.models.stack import tree_map
 
 PORTED_IDS = ("falcon_mamba_7b", "qwen2_72b", "mistral_large_123b", "starcoder2_15b",
-              "command_r_35b", "pixtral_12b", "olmoe_1b_7b", "granite_moe_3b_a800m")
-UNPORTED_IDS = ("recurrentgemma_9b", "seamless_m4t_large_v2")
+              "command_r_35b", "pixtral_12b", "olmoe_1b_7b", "granite_moe_3b_a800m",
+              "recurrentgemma_9b", "seamless_m4t_large_v2")
 B, S, CACHE_LEN = 2, 64, 128
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
-BF16_REL = {"ssm": 4e-2, "dense": 2e-2, "vlm": 2e-2, "moe": 2e-2}
+BF16_REL = {"ssm": 4e-2, "dense": 2e-2, "vlm": 2e-2, "moe": 2e-2, "hybrid": 4e-2,
+            "encdec": 2e-2}
 FLIP_SHARE = 1e-3
 
 
@@ -44,13 +60,55 @@ def batch(cfg, seed: int = 0):
     tokens = rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
     port = {"tokens": torch.from_numpy(tokens),
             "labels": torch.from_numpy(np.roll(tokens, -1, axis=1))}
-    if cfg.family == "vlm":
+    if cfg.family in ("vlm", "encdec"):
         pe = rng.standard_normal((B, cfg.num_stub_tokens, cfg.d_model)).astype(np.float32)
-        port["patch_embed"] = torch.from_numpy(pe).to(torch.bfloat16)
+        key = "patch_embed" if cfg.family == "vlm" else "src_embed"
+        port[key] = torch.from_numpy(pe).to(torch.bfloat16)
     ref = {k: jnp.asarray(v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy(),
                           jnp.bfloat16 if v.dtype == torch.bfloat16 else None)
            for k, v in port.items()}
     return port, ref
+
+
+def prefix_len(cfg) -> int:
+    """Positions before the first token: the vlm's stub prefix (the
+    encdec's frames are the encoder's, not the decoder's)."""
+    return cfg.num_stub_tokens if cfg.family == "vlm" else 0
+
+
+def unrolled_encode(params, src_embed, cfg, ax):
+    """The reference's ``encode`` with its layer scan unrolled."""
+    t, d = src_embed.shape[1:]
+    x = (src_embed.astype(jnp.bfloat16)
+         + jencdec.sinusoid(jnp.arange(t), d)[None].astype(jnp.bfloat16))
+    for i in range(cfg.enc_layers):
+        lp = jax.tree.map(lambda a, i=i: a[i], params["enc"])
+        x = x + jlayers.attention_train(jlayers.norm(x, lp["ln1"], cfg), lp["attn"], cfg, ax,
+                                        None, bidirectional=True)
+        x = x + jlayers.mlp(jlayers.norm(x, lp["ln2"], cfg), lp["ffn"], cfg, ax)
+    return jlayers.norm(x, params["ln_enc"], cfg)
+
+
+@contextlib.contextmanager
+def reference(cfg_j, dtype: str):
+    """While open, how to run the reference's functions for ``cfg_j``
+    in ``dtype``: ``jax.jit``, or for encdec in float32 op by op with
+    ``unrolled_encode`` in place of ``encode`` (see the module
+    docstring)."""
+    if cfg_j.family != "encdec" or dtype != "float32":
+        yield jax.jit
+        return
+    real = jencdec.encode
+    jencdec.encode = unrolled_encode
+    try:
+        yield lambda fn: fn
+    finally:
+        jencdec.encode = real
+
+
+def to_torch(tree):
+    """A tree of the reference's arrays as CPU tensors, same structure."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
 
 
 @functools.lru_cache(maxsize=None)
@@ -216,8 +274,9 @@ def loss_and_grads(case: str):
     p = ref_params(case, "float32")
     port_batch, ref_batch = batch(cfg)
     api_j = jax_get_model(cfg_j)
-    jloss, jgrads = jax.jit(jax.value_and_grad(
-        lambda p, b: api_j.loss(p, b, cfg_j, JSINGLE)))(p, ref_batch)
+    with reference(cfg_j, "float32") as run:
+        jloss, jgrads = run(jax.value_and_grad(
+            lambda p, b: api_j.loss(p, b, cfg_j, JSINGLE)))(p, ref_batch)
     model = convert.from_jax(jax.tree.map(np.asarray, p), cfg, device="cpu", trainable=True)
     loss = get_model(cfg).loss(model, port_batch, cfg, SINGLE)
     grads = torch.autograd.grad(loss, list(model.parameters()))
@@ -239,7 +298,7 @@ def assert_every_gradient_leaf_matches(run):
     for path, ref in flat:
         port = grads
         for k in path:
-            port = port[k.key]
+            port = port[k.key if hasattr(k, "key") else k.idx]
         ref = np.asarray(ref, np.float32)
         err = np.abs(port.float().numpy() - ref).max()
         assert err <= 1e-3 * np.abs(ref).max() + 1e-12, (jax.tree_util.keystr(path), err)

@@ -154,8 +154,12 @@ Phases, in order; any failure raises and exits non-zero:
    them within 1e-5; no kernel launched, so K8 never under grad); K8 on
    the RG-LRU scan at (1, 2048, 4096, 1) from h0 against its plain
    version (y within 2e-5, h_last bit-equal) and ``rglru_scan``'s K8
-   route against its associative-scan route (2e-5), then K8's times there
-   and at (1, 32768, 4096, 1); (b) recurrentgemma-9b at full width and
+   route against its associative-scan route (2e-5); K8 at N in {1, 2}
+   (its ring body) against its plain version over B in {1, 4}, S in {1,
+   15, 16, 17, 127, 128, 129, 2048, 4099} (a stage and the ring, each
+   +- 1), D in {200, 1000, 1001, 4096}, with and without h0, and once at (1,
+   32768, 4096, 1) (y within 2e-5, h_last bit-equal), then K8's times
+   at (1, 2048, 4096, 1) and (1, 32768, 4096, 1); (b) recurrentgemma-9b at full width and
    depth (38 layers = 12 x (rec, rec, attn) + (rec, rec), 17.16 GB of
    bf16 and f32 leaves drawn from ``--seed``): a profiled 2,048-token
    prefill, the 32,768-token prefill at batch 1 (K8 launched once per
@@ -171,8 +175,12 @@ Phases, in order; any failure raises and exits non-zero:
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
 check, no result line). ``--scan-only`` builds, prints ptxas's register
-and spill report for each K8 body, runs phase 6(a), times K8 at S in
-{1, 2, 4, ..., 128} for B in {1, 4}, and stops (no result line).
+and spill report for each K8 body, runs phase 6(a) and the ring body's
+sweep of phase 11(a), times K8 at (B, S, 8192, 16) for S in {1, 2, 4,
+..., 128} and at (B, S, 4096, 1) for S in {1, 32, 128, 512, 2048, 8192,
+32768} (beside each bound), both for B in {1, 4}, times the ring body
+at 2 and 4 stages on the same inputs (``scan_plan``'s stage rule), and
+stops (no result line).
 ``--storage-only`` builds, runs phase 7 and stops (no result line).
 ``--train-only`` builds, runs phase 8 and stops (no result line);
 ``--dense-only`` the same for phase 9, ``--moe-only`` for phase 10;
@@ -254,11 +262,21 @@ PREFILL_CHUNK = (1, 128, 8192, 16)  # (B, S, D, N): one scan_chunk of falcon-mam
 DECODE_STEP = (4, 1, 8192, 16)  # the launcher's decode call at batch 4
 # the K8 check's sweep: S = 1 (the float4 body's one-step instance) and
 # every remainder of its 4-step load batches, D not a multiple of a
-# block's channels, N from the scalar body's 1 and 2 to a warp's lanes
+# block's channels, N from the ring body's 1 and 2 to a warp's lanes
 SCAN_S = (1, 2, 3, 7, 8, 9, 16, 128)
 SCAN_N = (1, 2, 4, 8, 16, 32)
 SCAN_D = (200, 1000, 8192)
 SCAN_B = (1, 4, 32)
+# the ring body's sweep (N in {1, 2}): one step, a stage (16 steps) +- 1,
+# 128 steps +- 1, the profiled prefill and a length past it that ends inside
+# a stage; D 200 and 1000 leave a ragged last group of 32 columns, 1001
+# takes the 4-byte copies (rows not 16-byte aligned)
+RING_S = (1, 15, 16, 17, 127, 128, 129, 2048, 4099)
+RING_N = (1, 2)
+RING_D = (200, 1000, 1001, 4096)
+RING_B = (1, 4)
+# --scan-only's RG-LRU sweep: K8 at (B, S, 4096, 1)
+RGLRU_S = (1, 32, 128, 512, 2048, 8192, 32768)
 
 
 def log(msg: str) -> None:
@@ -827,12 +845,13 @@ def scan_bytes(b, s, d, n) -> int:
     return 4 * (2 * b * s * d * n + b * s * n + b * d * n + b * s * d + b * d * n)
 
 
-def scan_times(torch, shape, seed: int) -> dict:
+def scan_times(torch, shape, seed: int, plain_ms: float | None = None) -> dict:
     """K8 with h0 and h_last at ``shape``: the median and least wrapper
     time (CUDA events), the device time warm (the same inputs every
     launch) beside the launch floor's (a 16-byte ``fill_`` in the same
     trace) and cold (each launch the next of COLD_BYTES of input sets),
-    the plain version's time and the bound."""
+    the plain version's time (timed here unless ``plain_ms`` is given)
+    and the bound."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
     b, s, d, n = shape
@@ -844,8 +863,9 @@ def scan_times(torch, shape, seed: int) -> dict:
         lambda: (kernel(), torch.empty(16, dtype=torch.uint8, device="cuda").fill_(0)),
         ("selective_scan_kernel", FLOOR_KERNEL),
     )
-    plain_ms = time_ms(torch, lambda: selective_scan_plain(da, dbu, cm, h0), samples=5,
-                       per_sample=2)
+    if plain_ms is None:
+        plain_ms = time_ms(torch, lambda: selective_scan_plain(da, dbu, cm, h0), samples=5,
+                           per_sample=2)
     del da, dbu, cm, h0
     nbytes = scan_bytes(b, s, d, n)
     sets = -(-COLD_BYTES // (nbytes - 4 * (b * s * d + b * d * n)))  # input bytes per set
@@ -869,15 +889,15 @@ def scan_times(torch, shape, seed: int) -> dict:
     return rec
 
 
-def check_scan_kernel(torch, seed: int) -> dict:
-    """Phase 6(a): K8 against its plain version over the sweep (y and
-    h_last within SCAN_TOL, h_last bit-equal: both update h with a
-    multiply, then an add), then its times at the prefill chunk and at
-    the decode step."""
+def scan_sweep_agrees(torch, seed: int, bs, ss, ds, ns) -> dict:
+    """K8 against its plain version at every (B, S, D, N) of the product
+    of ``bs``, ``ss``, ``ds`` and ``ns``, with and without h0: y within
+    SCAN_TOL, h_last bit-equal (both update h with a multiply, then an
+    add). Returns the case count and y's largest error."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
     cases, err = 0, 0.0
-    for b, s, d, n in itertools.product(SCAN_B, SCAN_S, SCAN_D, SCAN_N):
+    for b, s, d, n in itertools.product(bs, ss, ds, ns):
         da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed + cases)
         for start in (None, h0):
             y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
@@ -893,8 +913,41 @@ def check_scan_kernel(torch, seed: int) -> dict:
         del da, dbu, cm, h0, y, h, want_y, want_h
     torch.cuda.empty_cache()
     log(f"kernel selective_scan: y within rtol=atol=2e-5 and h_last bit-equal to plain on "
-        f"{cases} cases (B {SCAN_B}, S {SCAN_S}, D {SCAN_D}, N {SCAN_N}, with and without "
-        f"h0; y max_abs_err {err})")
+        f"{cases} cases (B {bs}, S {ss}, D {ds}, N {ns}, with and without h0; y max_abs_err "
+        f"{err})")
+    return {"cases": cases, "max_abs_err": err}
+
+
+def scan_held_once(torch, shape, seed: int) -> tuple[float, float]:
+    """K8 at ``shape`` from h0 against its plain version, once: y within
+    SCAN_TOL, h_last bit-equal. Returns y's largest error and the plain
+    version's time (ms) for that one call, by CUDA events."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    da, dbu, cm, h0 = scan_inputs(torch, *shape, seed)
+    y, h = selective_scan(da, dbu, cm, h0=h0, return_state=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_y, want_h = selective_scan_plain(da, dbu, cm, h0)
+    end.record()
+    end.synchronize()
+    torch.testing.assert_close(y, want_y, **SCAN_TOL, msg=lambda m: f"y at {shape}: {m}")
+    if not torch.equal(h, want_h):
+        raise AssertionError(f"K8 at {shape}: h_last not bit-equal to plain (max_abs_err "
+                             f"{float((h - want_h).abs().max())})")
+    err = float((y - want_y).abs().max())
+    del da, dbu, cm, h0, y, h, want_y, want_h
+    torch.cuda.empty_cache()
+    return err, start.elapsed_time(end)
+
+
+def check_scan_kernel(torch, seed: int) -> dict:
+    """Phase 6(a): K8 against its plain version over the sweep
+    (``scan_sweep_agrees``), then its times at the prefill chunk and at
+    the decode step."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    scan_sweep_agrees(torch, seed, SCAN_B, SCAN_S, SCAN_D, SCAN_N)
     b, s, d, n = PREFILL_CHUNK
     da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
     y, h = selective_scan(da, dbu, cm, h0=h0, return_state=True)
@@ -930,22 +983,54 @@ def check_scan_kernel(torch, seed: int) -> dict:
     return row
 
 
-def scan_s_sweep(torch, seed: int) -> dict:
-    """K8's warm device time (ms) at (B, S, 8192, 16) with h0 for B in
-    {1, 4} and S in {1, 2, 4, ..., 128}: run from another checkout, how
-    its body compares over S."""
+def scan_s_sweep(torch, seed: int, d: int, n: int, ss) -> dict:
+    """K8's warm device time (ms) at (B, S, d, n) with h0 for B in {1, 4}
+    and S in ``ss``, each beside its byte bound: run from another
+    checkout, how its body compares over S."""
     from repro_torch.kernels.selective_scan import selective_scan
 
     out = {}
     for b in (1, 4):
-        for s in (1, 2, 4, 8, 16, 32, 64, 128):
-            da, dbu, cm, h0 = scan_inputs(torch, b, s, 8192, 16, seed)
-            out[f"{b},{s}"] = device_ms(
-                torch, lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True),
-                "selective_scan_kernel")
+        for s in ss:
+            da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
+            dev = device_ms(torch, lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True),
+                            "selective_scan_kernel")
+            out[f"{b},{s}"] = {"device_ms": dev,
+                               "bound_ms": scan_bytes(b, s, d, n) / HBM_BYTES_PER_S * 1e3}
             del da, dbu, cm, h0
     torch.cuda.empty_cache()
-    log(f"kernel selective_scan: device_ms at (B, S, 8192, 16) {json.dumps(out)}")
+    log(f"kernel selective_scan: device_ms at (B, S, {d}, {n}) {json.dumps(out)}")
+    return out
+
+
+def scan_stage_times(torch, seed: int) -> dict:
+    """The ring body at 2 and 4 stages on the same inputs at (B, S, 4096,
+    N), through the C entry with ``scan_plan``'s grid: warm device times
+    in turns (4, 2, 2, 4), beside the stage count ``scan_plan`` picks, the
+    measurement behind that rule."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import BODY_RING, scan_plan
+
+    out = {}
+    shapes = [(b, s, 4096, n) for n in (1, 2) for b in (1, 4) for s in (32, 512, 8192)]
+    for b, s, d, n in shapes + [(1, 32768, 4096, 1)]:
+        da, dbu, cm, h0 = scan_inputs(torch, b, s, d, n, seed)
+        y, h_last = da.new_empty((b, s, d)), da.new_empty((b, d, n))
+        plan = scan_plan(b, s, d, n)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(k):
+            _build.launch("selective_scan", da.data_ptr(), dbu.data_ptr(), cm.data_ptr(),
+                          h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), b, s, d, n,
+                          BODY_RING, k, plan.grid[0], stream)
+
+        times = {2: [], 4: []}
+        for k in (4, 2, 2, 4):
+            times[k].append(device_ms(torch, lambda: call(k), "selective_scan_kernel"))
+        out[f"{b},{s},{d},{n}"] = {"picked": plan.stages, "2": times[2], "4": times[4]}
+        del da, dbu, cm, h0, y, h_last
+    torch.cuda.empty_cache()
+    log(f"kernel selective_scan: ring body device_ms at 2 and 4 stages {json.dumps(out)}")
     return out
 
 
@@ -955,8 +1040,8 @@ def scan_ptxas(build_log: str) -> list[str]:
     out, name = [], None
     for line in build_log.splitlines():
         if "Compiling entry function" in line:
-            m = re.search(r"(selective_scan_kernel\w*?)I((?:Li\d+E)+)", line)
-            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2))) if m else ""
+            m = re.search(r"(selective_scan_kernel\w*?)I((?:L[ib]\d+E)+)", line)
+            args = ", ".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m else ""
             name = f"{m.group(1)}<{args}>" if m else None
         elif name and ("registers" in line or "spill" in line):
             out.append(f"ptxas {name}: {line.strip()}")
@@ -2257,10 +2342,12 @@ def hybrid_k8_route(np, torch, seed: int) -> dict:
     kernel's y and h_last against its plain version on the same operands
     (da = a, dbu = b, cm = 1; y within 2e-5, h_last bit-equal); then
     ``rglru_scan`` without grad (one K8 launch) against its
-    associative-scan route under grad (no launch) within 2e-5. Then K8's
-    times there (``scan_times``: warm, cold, plain, bound) and at
-    ``HYBRID_SCAN_32K`` (the wrapper's median and the warm device time,
-    beside the bound). Returns the record for the kernels' JSON line."""
+    associative-scan route under grad (no launch) within 2e-5. Then K8
+    against its plain version over the ring body's sweep (RING_B x RING_S
+    x RING_D x RING_N) and once at ``HYBRID_SCAN_32K``, and its times at
+    both shapes (``scan_times``: warm, cold, plain, bound; the 32k plain
+    time is that one call's). Returns the record for the kernels' JSON
+    line."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
@@ -2305,20 +2392,16 @@ def hybrid_k8_route(np, torch, seed: int) -> dict:
         f"against the plain version (tolerance 2e-5), h_last bit-equal; rglru_scan's K8 route "
         f"against its associative-scan route (under grad, K8 not launched) max_abs_err "
         f"{route_err} (tolerance 2e-5)")
+    ring = scan_sweep_agrees(torch, seed, RING_B, RING_S, RING_D, RING_N)
+    big_err, big_plain_ms = scan_held_once(torch, HYBRID_SCAN_32K, seed)
+    log(f"phase 11(a) K8 at {HYBRID_SCAN_32K} with h0: y max_abs_err {big_err} against the "
+        f"plain version (tolerance 2e-5), h_last bit-equal; plain {big_plain_ms:.3f} ms")
     rec = scan_times(torch, HYBRID_SCAN, seed)
-    da, dbu, cm, h0 = scan_inputs(torch, *HYBRID_SCAN_32K, seed)
-    big = lambda: selective_scan(da, dbu, cm, h0=h0, return_state=True)  # noqa: E731
-    big_ms = time_ms(torch, big, samples=5, per_sample=2)
-    big_dev = device_ms(torch, big, "selective_scan_kernel", reps=5)
-    nbytes = scan_bytes(*HYBRID_SCAN_32K)
-    del da, dbu, cm, h0
-    torch.cuda.empty_cache()
-    rec["prefill_32k"] = {"shape": list(HYBRID_SCAN_32K), "ms": big_ms, "device_ms": big_dev,
-                          "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                          "bytes": nbytes}
+    rec["prefill_32k"] = scan_times(torch, HYBRID_SCAN_32K, seed, plain_ms=big_plain_ms)
+    rec["prefill_32k"]["max_abs_err"] = big_err
     rec["max_abs_err"] = plain_err
     rec["route_max_abs_err"] = route_err
-    log(f"kernel selective_scan at {HYBRID_SCAN_32K} with h0: {json.dumps(rec['prefill_32k'])}")
+    rec["ring_sweep"] = ring
     return rec
 
 
@@ -2386,8 +2469,10 @@ def main() -> int:
                     help="build, then time the tile kernels K1-K4 at TILE_SHAPES, and stop "
                          "(no equality check, no other phase, no result line)")
     ap.add_argument("--scan-only", action="store_true",
-                    help="build, print ptxas's report for each K8 body, run phase 6(a) and "
-                         "K8's S sweep, and stop (no other phase, no result line)")
+                    help="build, print ptxas's report for each K8 body, run phase 6(a), the "
+                         "ring body's sweep and K8's S sweeps at (B, S, 8192, 16) and (B, S, "
+                         "4096, 1), time the ring body at 2 and 4 stages, and stop (no "
+                         "other phase, no result line)")
     ap.add_argument("--storage-only", action="store_true",
                     help="build, run phase 7 (the scenario engine and the CORE checkpoint "
                          "layer on the card), and stop (no other phase, no result line)")
@@ -2444,7 +2529,12 @@ def main() -> int:
         for line in scan_ptxas(_build.build_log):
             log(line)
         row = check_scan_kernel(torch, args.seed)
-        log(json.dumps({"selective_scan": row, "s_sweep": scan_s_sweep(torch, args.seed)}))
+        ring = scan_sweep_agrees(torch, args.seed, RING_B, RING_S, RING_D, RING_N)
+        log(json.dumps({
+            "selective_scan": row, "ring_sweep": ring,
+            "s_sweep": scan_s_sweep(torch, args.seed, 8192, 16, (1, 2, 4, 8, 16, 32, 64, 128)),
+            "rglru_sweep": scan_s_sweep(torch, args.seed, 4096, 1, RGLRU_S),
+            "ring_stages": scan_stage_times(torch, args.seed)}))
         log(smi)
         return 0
     if args.storage_only:

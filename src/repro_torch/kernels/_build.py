@@ -55,8 +55,9 @@ ENTRIES = {
     "xor_parity": (_P, _P, _I, _L, _I, _P),
     "xor_parity_batched": (_P, _P, _I, _I, _L, _I, _P),
     # csrc/selective_scan.cu (K8): da, dbu, cm, h0 (nullable), y,
-    # h_last (nullable), B, S, D, N, stream
-    "selective_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # h_last (nullable), B, S, D, N, then selective_scan.scan_plan's body,
+    # stages and grid x; stream
+    "selective_scan": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 LAUNCHES: dict[str, int] = {name: 0 for name in ENTRIES}
 

@@ -8,17 +8,20 @@ for da, dbu (B, S, D, N) f32 and cm (B, S, N) f32 -> y (B, S, D) f32,
 from h_{-1} = h0 (zeros by default), optionally returning h_{S-1}.
 
 The kernel is CUDA C++ (``csrc/selective_scan.cu``) with two bodies,
-chosen by N in the C entry: ``selective_scan_kernel_vec`` (one thread
-per (b, d, four values of n), float4 loads) for N >= 4, which holds the
+chosen by ``scan_plan``: ``selective_scan_kernel_vec`` (one thread per
+(b, d, four values of n), float4 loads) for N >= 4, which holds the
 decode step's one token and the prefill chunk, and
-``selective_scan_kernel`` (one thread per (b, d, n)) for N < 4. Both
-carry h in registers over the S loop, so the state never goes to device
-memory. It replaces src/repro/kernels/selective_scan.py
-``selective_scan``; the TPU kernel's block sizes (``bs``, ``bd``) have
-no counterpart, since the CUDA kernel fixes its own launch shape. It is
-bytes-bound (4 flops per 8 bytes of da and dbu). The wrapper launches it
-for a CUDA tensor and runs ``selective_scan_plain`` for a CPU tensor;
-the CUDA path never falls back.
+``selective_scan_kernel_ring`` (one warp per 32 (d, n) columns,
+streaming all of S through a ring of stages in shared memory) for
+N in {1, 2}, which holds the RG-LRU scan's long, narrow (1, S, 4096, 1).
+Each carries h in registers over the S loop, so the state never goes to
+device memory. It replaces
+src/repro/kernels/selective_scan.py ``selective_scan``; the TPU
+kernel's block sizes (``bs``, ``bd``) have no counterpart: ``scan_plan``
+gives the launch shape, and the C entry checks it. It is bytes-bound
+(4 flops per 8 bytes of da and dbu). The wrapper launches it for a CUDA
+tensor and runs ``selective_scan_plain`` for a CPU tensor; the CUDA path
+never falls back.
 
 K8 is forward only, as the TPU kernel is: the kernel writes through raw
 pointers, so its output would carry no ``grad_fn`` and everything
@@ -30,10 +33,50 @@ reference's associative scan, instead.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.backend import raw_stream
+
+
+# the C entry's body codes (csrc/selective_scan.cu kBody*)
+BODY_VEC, BODY_RING = 0, 1
+VEC_THREADS = 256  # float4 body: threads per block, 4 columns each (kVecThreads)
+RING_STEPS = 16  # ring body: time steps per stage (kRingSteps)
+RING_COLS = 32  # ring body: (d, n) columns per one-warp block, one a lane (kRingCols)
+# ring body, bytes of one stage: da and dbu rows (RING_STEPS x RING_COLS
+# floats each) and the stage's cm (32 floats) (kStageBytes)
+RING_STAGE_BYTES = 4 * (2 * RING_STEPS * RING_COLS + 32)
+# ring body: below this many bytes in one stage a warp, 4 stages (3
+# ahead), else 2 (chip_smoke.py --scan-only's sweep and the .cu header)
+RING_ONE_AHEAD_BYTES = 1_500_000
+
+
+class ScanPlan(NamedTuple):
+    """K8's launch for one (B, S, D, N), what the C entry takes: the
+    body, the ring body's stages (0 for the float4 body) and the grid
+    (blocks over the columns d * N + n of one b, B). A block covers
+    ``4 * VEC_THREADS`` contiguous columns (float4 body) or ``RING_COLS``
+    (ring body)."""
+    body: int
+    stages: int
+    grid: tuple[int, int]
+
+
+def scan_plan(b: int, s: int, d: int, n: int) -> ScanPlan:
+    """The float4 body for N >= 4. For N in {1, 2} the ring body, one
+    warp a block, for every S: 4 stages while its B * ceil(D * N / 32)
+    warps hold less than RING_ONE_AHEAD_BYTES one stage each (3 stages,
+    48 steps of da and dbu ahead), else 2 (every warp resident, one stage
+    ahead). ``s`` does not enter: the ring body's pre-issue stops at S."""
+    cols = d * n
+    if n >= 4:
+        return ScanPlan(BODY_VEC, 0, (-(-cols // (4 * VEC_THREADS)), b))
+    grid = (-(-cols // RING_COLS), b)
+    stages = 4 if grid[0] * b * RING_STAGE_BYTES < RING_ONE_AHEAD_BYTES else 2
+    return ScanPlan(BODY_RING, stages, grid)
 
 
 def selective_scan_plain(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor,
@@ -97,8 +140,10 @@ def selective_scan(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor, *,
     b, s, d, n = da.shape
     y = da.new_empty((b, s, d))
     h_last = da.new_empty((b, d, n)) if return_state else None
+    plan = scan_plan(b, s, d, n)
     stream = raw_stream(da.device)
     _build.launch("selective_scan", da.data_ptr(), dbu.data_ptr(), cm.data_ptr(),
                   None if h0 is None else h0.data_ptr(), y.data_ptr(),
-                  None if h_last is None else h_last.data_ptr(), b, s, d, n, stream)
+                  None if h_last is None else h_last.data_ptr(), b, s, d, n, plan.body,
+                  plan.stages, plan.grid[0], stream)
     return (y, h_last) if return_state else y

@@ -21,12 +21,12 @@ one with da = a and dbu = sqrt(1 - a^2) i x, and its output
 y_t = h_t * 1 is h_t exactly. One launch per layer covers the whole
 prompt (K8 carries h in registers over S), where the reference walks
 ``fit_chunk(S, scan_chunk)`` chunks with an associative scan. On a CUDA
-tensor that is the CUDA kernel's scalar body; on a CPU tensor its plain
-version. Under grad (``lm_loss``) the reference's own chunked
-associative scan runs instead (``mamba._associative_scan``), exactly as
-``mamba_mix`` decides: K8 has no backward and refuses an operand that
-requires grad. The one-token ``rglru_step`` of decode is torch ops, as
-in the reference.
+tensor that is the CUDA kernel's ring body (one warp streams 32 columns
+through all of S); on a CPU tensor its plain version. Under grad
+(``lm_loss``) the reference's own chunked associative scan runs instead
+(``mamba._associative_scan``), exactly as ``mamba_mix`` decides: K8 has
+no backward and refuses an operand that requires grad. The one-token
+``rglru_step`` of decode is torch ops, as in the reference.
 
 The sliding-window KV cache is O(window) and the LRU state O(1), which
 is what makes long contexts native for this family. Layouts are the

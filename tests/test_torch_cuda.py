@@ -3,7 +3,8 @@ its source-group partitioning and every group count) and matrix kernel
 (K5, K6, K7, K7 batched) against its plain torch version, and the codec's
 device path against its CPU path, byte for byte; the selective scan (K8)
 against its plain version at rtol = atol = 2e-5 (y) and bit for bit
-(h_last), over both of its bodies, and its refusal of an operand that
+(h_last), over both of its bodies (the ring body at its stage and ring
+edges, and at the RG-LRU scan's 32k shape), and its refusal of an operand that
 requires grad; one reduced falcon-mamba, qwen2 or olmoe train step on the
 card against the CPU; a reduced starcoder2, olmoe, recurrentgemma or
 seamless-m4t f32 prefill and decode on the card against the CPU; the
@@ -204,9 +205,9 @@ def test_selective_scan_matches_plain(card):
     """K8 over chip_smoke.py's phase 6(a) sweep: B in {1, 4, 32}, S = 1
     (the float4 body's one-step instance), every remainder of its 4-step
     load batches and the prefill chunk, D in {200, 1000, 8192} (200 and
-    1000 leave a ragged last block), N from 1 to 32 (the scalar body at 1
-    and 2), with and without h0; y within 2e-5, h_last bit-equal (both
-    sides update h with a multiply, then an add)."""
+    1000 leave a ragged last block), N from 1 to 32 (the ring body at 1
+    and 2), with and without h0; y within 2e-5, h_last bit-equal (both sides update h with a
+    multiply, then an add)."""
     from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
 
     _build.reset_launches()
@@ -223,6 +224,68 @@ def test_selective_scan_matches_plain(card):
             cases += 1
         del da, dbu, cm, h0, y, h, want_y, want_h
     assert _build.LAUNCHES["selective_scan"] == cases
+
+
+@pytest.mark.cuda
+def test_selective_scan_ring_body_matches_plain(card):
+    """K8's ring body (N in {1, 2}) at its edges: B in {1, 4} (4 stages at
+    B = 1, D = 4096; 2 at B = 4, D = 4096), S = 1, a stage of 16
+    steps +- 1, 128 steps +- 1, the profiled prefill's 2048 and 4099
+    (ending inside a stage), D in {200, 1000, 1001, 4096} (200 and 1000
+    leave a ragged last group of 32 columns, 1001 takes the 4-byte
+    copies), with and without h0; y within 2e-5, h_last bit-equal (each
+    column's h is one sequential chain of a multiply, then an add, in
+    both)."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    _build.reset_launches()
+    cases = 0
+    for b, s, d, n in itertools.product((1, 4), (1, 15, 16, 17, 127, 128, 129, 2048, 4099),
+                                        (200, 1000, 1001, 4096), (1, 2)):
+        da, dbu, cm, h0 = _scan_inputs(card, b, s, d, n, 100 + cases)
+        for start in (None, h0):
+            y, h = selective_scan(da, dbu, cm, h0=start, return_state=True)
+            want_y, want_h = selective_scan_plain(da, dbu, cm, start)
+            where = (b, s, d, n, start is not None)
+            torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5, msg=str(where))
+            assert torch.equal(h, want_h), where
+            cases += 1
+        del da, dbu, cm, h0, y, h, want_y, want_h
+    assert _build.LAUNCHES["selective_scan"] == cases
+
+
+@pytest.mark.cuda
+def test_selective_scan_ring_body_any_alignment(card):
+    """da and dbu views one float past a 16-byte boundary: the ring body
+    takes its 4-byte copies; y within 2e-5, h_last bit-equal."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    for n in (1, 2):
+        da, dbu, cm, h0 = _scan_inputs(card, 2, 129, 4096, n, 31 + n)
+        shape = da.shape
+        views = []
+        for t in (da, dbu):
+            flat = torch.empty(t.numel() + 1, device=card)
+            flat[1:] = t.reshape(-1)
+            views.append(flat[1:].view(shape))
+        assert views[0].data_ptr() % 16 == 4
+        y, h = selective_scan(*views, cm, h0=h0, return_state=True)
+        want_y, want_h = selective_scan_plain(da, dbu, cm, h0)
+        torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+        assert torch.equal(h, want_h)
+
+
+@pytest.mark.cuda
+def test_selective_scan_rglru_32k_matches_plain(card):
+    """The RG-LRU scan's 32k prefill shape (1, 32768, 4096, 1) from h0,
+    once: y within 2e-5, h_last bit-equal to the plain version."""
+    from repro_torch.kernels.selective_scan import selective_scan, selective_scan_plain
+
+    da, dbu, cm, h0 = _scan_inputs(card, 1, 32768, 4096, 1, 7)
+    y, h = selective_scan(da, dbu, cm, h0=h0, return_state=True)
+    want_y, want_h = selective_scan_plain(da, dbu, cm, h0)
+    torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+    assert torch.equal(h, want_h)
 
 
 @pytest.mark.cuda

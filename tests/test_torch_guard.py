@@ -449,16 +449,18 @@ def test_scan_refuses_an_operand_that_requires_grad(what, on, fake_library, monk
 
 
 def test_scan_small_n_takes_any_alignment(fake_library):
-    """N < 4 runs the scalar body: a view one float off a 16-byte
-    boundary launches."""
+    """N < 4 runs the ring body (S = 3 here), which copies 4 bytes at a
+    time where a row is not 16-byte aligned: a da, dbu or h0 one float off
+    a 16-byte boundary launches."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.selective_scan import selective_scan
 
     lib = fake_library(0)
     _build.reset_launches()
-    t = _scan_operands(2, 3, 8, 2, offset="h0")
-    selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"])
-    assert _build.LAUNCHES["selective_scan"] == 1 and len(lib.calls) == 1
+    for what in ("h0", "da", "dbu"):
+        t = _scan_operands(2, 3, 8, 2, offset=what)
+        selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"])
+    assert _build.LAUNCHES["selective_scan"] == 3 and len(lib.calls) == 3
 
 
 def test_scan_refused_launch_raises_and_counts_nothing(fake_library):
@@ -493,10 +495,11 @@ def test_scan_entry_is_resolved_once(fake_library):
 def test_scan_decode_launch_arguments(with_h0, fake_library):
     """At the decode shape the wrapper passes the C entry its arguments
     in the order of ``_build.ENTRIES["selective_scan"]``: the six
-    pointers (h0 and h_last null when absent), then B, S, D, N and the
-    stream; y and h_last are the tensors it returns."""
+    pointers (h0 and h_last null when absent), then B, S, D, N, the
+    float4 body's plan (body, no stages, grid x) and the stream; y and
+    h_last are the tensors it returns."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.selective_scan import selective_scan
+    from repro_torch.kernels.selective_scan import BODY_VEC, scan_plan, selective_scan
 
     lib = fake_library(0)
     t = _scan_operands(*DECODE_STEP)
@@ -508,8 +511,37 @@ def test_scan_decode_launch_arguments(with_h0, fake_library):
     b, s, d, n = DECODE_STEP
     assert y.shape == (b, s, d) and h_last.shape == (b, d, n)
     assert y.dtype == h_last.dtype == torch.float32
+    plan = scan_plan(b, s, d, n)
+    assert plan.body == BODY_VEC
     assert args == (t["da"].data_ptr(), t["dbu"].data_ptr(), t["cm"].data_ptr(),
                     h0.data_ptr() if with_h0 else None, y.data_ptr(), h_last.data_ptr(),
-                    b, s, d, n, 0)
+                    b, s, d, n, BODY_VEC, 0, plan.grid[0], 0)
     assert args_y[5] is None and args_y[4] == y_only.data_ptr()
+
+
+@pytest.mark.parametrize("shape", [(1, 2048, 4096, 1), (1, 32, 4096, 1), (4, 17, 200, 2),
+                                   (1, 4099, 1000, 1), (2, 2, 1000, 1), (2, 1, 1000, 1),
+                                   (4, 1, 4096, 2)])
+def test_scan_ring_launch_arguments(shape, fake_library):
+    """For N in {1, 2} the wrapper passes ``scan_plan``'s ring body to the
+    C entry, at every S, in the order of ``_build.ENTRIES["selective_scan"]``:
+    the six pointers, B, S, D, N, then the body, stages and grid x, then
+    the stream; one launch, counted."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import BODY_RING, scan_plan, selective_scan
+
+    lib = fake_library(0)
+    _build.reset_launches()
+    b, s, d, n = shape
+    shapes = {"da": (b, s, d, n), "dbu": (b, s, d, n), "cm": (b, s, n), "h0": (b, d, n)}
+    t = {name: _cuda_typed(torch.empty(shape)) for name, shape in shapes.items()}
+    y, h_last = selective_scan(t["da"], t["dbu"], t["cm"], h0=t["h0"], return_state=True)
+    [(name, args)] = lib.calls
+    assert name == "selective_scan" and len(args) == len(_build.ENTRIES[name])
+    plan = scan_plan(b, s, d, n)
+    assert plan.body == BODY_RING
+    assert args == (t["da"].data_ptr(), t["dbu"].data_ptr(), t["cm"].data_ptr(),
+                    t["h0"].data_ptr(), y.data_ptr(), h_last.data_ptr(), b, s, d, n, BODY_RING,
+                    plan.stages, plan.grid[0], 0)
+    assert _build.LAUNCHES["selective_scan"] == 1
 

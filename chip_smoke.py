@@ -172,6 +172,18 @@ Phases, in order; any failure raises and exits non-zero:
    memory, and ``Trainer.run`` for 6 steps at batch 8 x seq 256 (as
    phase 8(c), no save made), step 7 under the profiler. No kernel
    launched on the encdec path.
+12. the mesh slice on a one-rank NCCL ``DeviceMesh`` (1, 1) on cuda:0
+   (a file rendezvous; the card machine has one H100 and NCCL takes one
+   rank per card, so the collectives run in the CPU tests): (a)
+   falcon-mamba-7b at full width cut to 2 layers as 8(b) by
+   ``Trainer(mesh=...)``, the state as DTensors, 2 steps with the CORE
+   save at step 2, restored after two node failures bit-equal and
+   resumed to step 3; the losses and the step-3 state held against the
+   unsharded ``Trainer``'s steps from the same seed (bit-equal, else
+   within 1e-5), one more step profiled; (b) the sequence-sharded
+   decode (the flash combine) against the unsharded branch on the card
+   over 8 cases, within 1e-5. Then the process group is destroyed. No
+   kernel launched.
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
 check, no result line). ``--scan-only`` builds, prints ptxas's register
@@ -185,7 +197,8 @@ stops (no result line).
 ``--train-only`` builds, runs phase 8 and stops (no result line);
 ``--dense-only`` the same for phase 9, ``--moe-only`` for phase 10;
 ``--hybrid-only`` builds and runs phase 11(a) and 11(b) for the hybrid
-id, ``--encdec-only`` phase 11(a) and 11(c) for the encdec id. The
+id, ``--encdec-only`` phase 11(a) and 11(c) for the encdec id;
+``--mesh-only`` builds and runs phase 12. The
 script imports ``repro_torch`` from the ``src/`` beside it, so a copy of
 it placed in another checkout times that checkout's kernels.
 
@@ -1680,7 +1693,7 @@ def train_card_vs_cpu(np, torch, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def train_full_width(np, torch, seed: int) -> None:
+def train_full_width(np, torch, seed: int) -> float:
     """Phase 8(b): falcon-mamba-7b at full width, cut to 2 of its 64
     layers, trained on the card by ``Trainer.run`` for 6 steps at the
     launcher's defaults (global batch 8, seq 256, lr 3e-4 with one
@@ -1689,7 +1702,8 @@ def train_full_width(np, torch, seed: int) -> None:
     two nodes of group 0 failed, ``restore_latest`` bit-equal to the
     saved state, ``ckpt.repair`` recovered, and 2 steps resumed from the
     restored state, whose step-7 loss is within 1e-3 relative of the
-    in-memory state's. K8 is never launched."""
+    in-memory state's. K8 is never launched. Returns the median step
+    wall (steps 2-6)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -1802,6 +1816,7 @@ def train_full_width(np, torch, seed: int) -> None:
     del restored, tr
     gc.collect()
     torch.cuda.empty_cache()
+    return med
 
 
 def train_dense_full_width(np, torch, seed: int, arch: str, phase: str, **cut) -> None:
@@ -1897,16 +1912,18 @@ def train_dense_full_width(np, torch, seed: int, arch: str, phase: str, **cut) -
     torch.cuda.empty_cache()
 
 
-def train_paths(np, torch, seed: int) -> None:
-    """Phase 8: the training path on the card."""
+def train_paths(np, torch, seed: int) -> float:
+    """Phase 8: the training path on the card; returns 8(b)'s median step
+    wall (phase 12(a) logs its own beside it)."""
     t0 = time.perf_counter()
     train_card_vs_cpu(np, torch, seed)
     log(f"phase 8(a) done in {time.perf_counter() - t0:.1f} s")
-    train_full_width(np, torch, seed)
+    wall_8b = train_full_width(np, torch, seed)
     log(f"phase 8(b) done in {time.perf_counter() - t0:.1f} s")
     train_dense_full_width(np, torch, seed, "starcoder2_15b", "8(c)", num_layers=8,
                            remat_block=2)
     log(f"phase 8(c) done in {time.perf_counter() - t0:.1f} s")
+    return wall_8b
 
 
 DENSE_IDS = ("qwen2_72b", "mistral_large_123b", "starcoder2_15b", "command_r_35b",
@@ -2462,6 +2479,192 @@ def hybrid_encdec_paths(np, torch, seed: int, families=("hybrid", "encdec")) -> 
     return out
 
 
+def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> None:
+    """Phase 12(a): falcon-mamba-7b at full width, cut to 2 layers as in
+    8(b), by ``Trainer(mesh=...)`` on the one-rank NCCL mesh (1, 1): the
+    state laid out as DTensors by ``state_specs``, each step under
+    ``mesh_context``. Two steps with the CORE save at step 2 (rank 0
+    stores the gathered state), two nodes of group 0 failed,
+    ``restore_latest`` bit-equal to the state in memory, one step resumed
+    from the restored state by the step function (no second save). The
+    losses and the step-3 state are held against the unsharded
+    ``Trainer``'s steps on the card from the same seed (bit-equal, else
+    within 1e-5). One sharded step under the
+    profiler gives the busy share. K8 is never launched."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import partition
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import convert
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.loop import LoopConfig, Trainer, _gathered
+
+    cfg = dataclasses.replace(get_config("falcon_mamba_7b"), num_layers=2)
+    steps = 3
+    lc = LoopConfig(steps=steps, ckpt_every=2, log_every=1, seq_len=256, global_batch=8,
+                    seed=seed, num_nodes=100)
+    oc = opt.OptConfig(lr=3e-4, warmup_steps=1, decay_steps=steps)
+
+    def flat(st):
+        tree = ts.TrainState(convert.stacked_tree(st.params), st.opt, st.step)
+        return [_gathered(x) for x in partition.flatten(tree)[0]]
+
+    # the unsharded reference: the same steps, no save
+    ref = Trainer(cfg, lc, oc, device="cuda")
+    state = ref.init_state()
+    ref_losses = []
+    for step in range(steps):
+        state, metrics = ref.step_fn(state, ref.pipeline.device_batch(step, ref.dev))
+        ref_losses.append(float(metrics["loss"]))
+    want = flat(state)
+    del state, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tr = Trainer(cfg, lc, oc, mesh=mesh, device="cuda")
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = tr.run(until=2)
+    run_s = time.perf_counter() - t0
+    man = tr.ckpt.manifests[2]
+    placed = sum(type(p).__name__ == "DTensor" for p in state.params.parameters())
+    log(f"phase 12(a) falcon-mamba-7b {cfg.num_layers} layers on the {tuple(mesh.mesh.shape)} "
+        f"{mesh.device_type} mesh {mesh.mesh_dim_names}: {placed} DTensor parameters; "
+        f"Trainer.run to step 2 {run_s:.3f} s with the save ({man.total_bytes} bytes, "
+        f"save wall {man.save_seconds:.6f} s)")
+    saved = flat(state)
+    store = tr.store
+    gid = man.group_ids[0]
+    victims = [store.node_of((gid, 0, 0)), store.node_of((gid, 1, 3))]
+    store.fail_nodes(victims)
+    t0 = time.perf_counter()
+    restored = tr.restore_latest()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    back = flat(restored)
+    equal = len(back) == len(saved) and all(_bits_equal(torch, a, b) for a, b in zip(saved, back))
+    log(f"phase 12(a) restore_latest with nodes {victims} down: wall {restore_s:.6f} s, "
+        f"{tr.last_restore_report.blocks_fetched} blocks fetched; {len(saved)} leaves "
+        f"bit-equal {equal}")
+    if not equal:
+        raise AssertionError("phase 12(a): the restored state differs from the saved one")
+    del saved, back, state
+    # step 3 from the restored state, by the step function (Trainer.run
+    # would save again at the end of its run)
+    batch = tr.pipeline.device_batch(2, tr.dev, mesh, tr.ax)
+    t0 = time.perf_counter()
+    with mesh_context(mesh):
+        restored, metrics = tr.step_fn(restored, batch)
+    tr.metrics_log.append({"step": steps, "loss": float(metrics["loss"]),
+                           "sec": time.perf_counter() - t0,
+                           "grad_norm": float(metrics["grad_norm"])})
+    peak = torch.cuda.max_memory_allocated()
+    losses = [rec["loss"] for rec in tr.metrics_log]
+    walls = [rec["sec"] for rec in tr.metrics_log]
+    got = flat(restored)
+    bit_equal = all(_bits_equal(torch, a, b) for a, b in zip(got, want))
+    worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    loss_rel = max(abs(a / b - 1) for a, b in zip(losses, ref_losses))
+    for rec in tr.metrics_log:
+        log(f"phase 12(a) step {rec['step']}: wall {rec['sec']:.6f} s, loss {rec['loss']:.6f}, "
+            f"grad norm {rec['grad_norm']:.6f}")
+    beside = (f"8(b)'s median {wall_8b:.6f} s in this run" if wall_8b is not None
+              else "8(b) not run in this call")
+    log(f"phase 12(a) step walls {walls} ({beside}); max_memory_allocated {peak} bytes; losses {losses} vs unsharded "
+        f"{ref_losses} (max relative {loss_rel}); step-3 state vs unsharded: bit-equal "
+        f"{bit_equal}, max |diff| {worst} over {len(got)} leaves")
+    if len(losses) != steps or loss_rel > 1e-5 or worst > 1e-5 or len(got) != len(want):
+        raise AssertionError("phase 12(a): the sharded Trainer differs from the unsharded one")
+    batch = tr.pipeline.device_batch(steps, tr.dev, mesh, tr.ax)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with mesh_context(mesh):
+            restored, metrics = tr.step_fn(restored, batch)
+        float(metrics["loss"])
+        prof_s = time.perf_counter() - t0
+    device_breakdown(prof, "phase 12(a) sharded train step 4 (profiled)", prof_s)
+    k8 = _build.LAUNCHES["selective_scan"]
+    log(f"phase 12(a) K8 launches {k8}")
+    if k8:
+        raise AssertionError(f"phase 12(a): training launched K8 {k8} times")
+    del restored, tr, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mesh_decode(np, torch, seed: int, mesh) -> None:
+    """Phase 12(b): ``attention_decode_general``'s sequence-sharded branch
+    (the flash combine) on the one-rank mesh against its unsharded branch
+    on the card, reduced qwen2 in f32: T = 128 slots, the ring wrapped
+    (pos 150) and not (pos 40), ``sliding_window`` 64 and none, B = 1
+    with the sequence on both mesh axes and B = 2 with the batch on data
+    and the sequence on model; out, k and v within 1e-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import shardings as S
+
+    worst = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for window in (None, 64):
+        cfg = get_config("qwen2_72b").reduced(sliding_window=window)
+        attn = L.init_attn(gen, cfg, torch.float32, "cuda")
+        for b, plan in ((1, S.ServePlan(seq_axes=("data", "model"))),
+                        (2, S.ServePlan(batch_axes=("data",), seq_axes=("model",)))):
+            for pos in (40, 150):
+                shape = (b, 128, cfg.num_kv_heads, cfg.head_dim)
+                x1 = torch.randn((b, 1, cfg.d_model), generator=gen, device="cuda")
+                ck = torch.randn(shape, generator=gen, device="cuda")
+                cv = torch.randn(shape, generator=gen, device="cuda")
+                want = L.attention_decode_general(x1, ck, cv, attn, cfg, S.SINGLE, pos,
+                                                  S.ServePlan())
+                spec = S.P(plan.batch_axes, plan.seq_axes, None, None)
+                o, nk, nv = L.attention_decode_general(
+                    x1, S.distribute(ck, spec, mesh), S.distribute(cv, spec, mesh), attn, cfg,
+                    S.SINGLE, pos, plan)
+                errs = [float((g - w).abs().max())
+                        for g, w in zip((o, nk.full_tensor(), nv.full_tensor()), want)]
+                worst = max(worst, *errs)
+                if max(errs) > 1e-5:
+                    raise AssertionError(f"phase 12(b) window {window} B {b} pos {pos}: "
+                                         f"max |diff| out, k, v {errs}")
+    log(f"phase 12(b) sequence-sharded decode vs unsharded on the card: 8 cases, max |diff| "
+        f"{worst} (tolerance 1e-5)")
+
+
+def mesh_paths(np, torch, seed: int, wall_8b: float | None = None) -> None:
+    """Phase 12: a one-rank NCCL mesh (1, 1) on cuda:0 through a file
+    rendezvous; 12(a) and 12(b) on it; then the process group is
+    destroyed. The card machine has one H100, and NCCL takes one rank per
+    card: the collectives run in the CPU tests (4 and 8 gloo ranks); this
+    phase proves the DTensor path through the card. The XOR butterfly is
+    not run: on one rank it has no round."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rdv-") as tmp:
+        init_ranks(0, 1, "file://" + str(pathlib.Path(tmp) / "rendezvous"), "cuda", 300)
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+            t0 = time.perf_counter()
+            mesh_train_full_width(np, torch, seed, mesh, wall_8b)
+            log(f"phase 12(a) done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            mesh_decode(np, torch, seed, mesh)
+            log(f"phase 12(b) done in {time.perf_counter() - t0:.1f} s")
+        finally:
+            dist.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2491,6 +2694,10 @@ def main() -> int:
     ap.add_argument("--encdec-only", action="store_true",
                     help="build, run phase 11(a) and 11(c) for the encdec family "
                          "(seamless-m4t-large-v2), and stop (no other phase, no result line)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, run phase 12 (the one-rank NCCL mesh: sharded training and "
+                         "the sequence-sharded decode), and stop (no other phase, no result "
+                         "line)")
     args = ap.parse_args()
 
     import torch
@@ -2567,6 +2774,11 @@ def main() -> int:
         log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
         log(smi)
         return 0
+    if args.mesh_only:
+        mesh_paths(np, torch, args.seed)
+        log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        return 0
     rows = check_kernels(np, torch, args.seed)
     matrix_rows = check_matrix_kernels(np, torch, args.seed)
     codec = codec_path(np, torch, args.seed)
@@ -2585,7 +2797,7 @@ def main() -> int:
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
     storage = storage_paths(np, torch, args.seed)
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
-    train_paths(np, torch, args.seed)
+    wall_8b = train_paths(np, torch, args.seed)
     log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
     dense_paths(np, torch, args.seed)
     log(f"phase 9 done at {time.perf_counter() - t_start:.1f} s")
@@ -2593,6 +2805,8 @@ def main() -> int:
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     hybrid = hybrid_encdec_paths(np, torch, args.seed)
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
+    mesh_paths(np, torch, args.seed, wall_8b)
+    log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     # K8 runs on phase 6(c)'s prefill and serve and on phase 11(b)'s prefill
     scan_row["launches_by_phase"] = {"6": scan_row["launches"], "11": hybrid["launches"]}
     scan_row["launches"] = sum(scan_row["launches_by_phase"].values())

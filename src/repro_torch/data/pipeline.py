@@ -10,8 +10,9 @@ reference's order, so both packages give the same batches bit for bit.
 The stream is not uniform noise: tokens follow a per-sequence 2-state
 Markov chain over vocab halves, so the LM loss has learnable structure.
 
-The reference's ``batch_specs`` (the batch's mesh sharding) waits for
-the mesh slice.
+On a mesh the batch is laid out by ``batch_specs`` (the batch dim over
+the dp axes): every rank draws the same global batch and keeps its own
+rows as a DTensor.
 """
 
 from __future__ import annotations
@@ -24,6 +25,17 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.layers import TensorSpec
+from repro_torch.models.shardings import P, distribute
+
+
+def batch_specs(cfg: ArchConfig, ax, *, with_stub: bool = True) -> dict:
+    """Specs of a train batch (batch dim over the dp axes)."""
+    specs = {"tokens": P(ax.dp, None), "labels": P(ax.dp, None)}
+    if with_stub and cfg.family == "vlm":
+        specs["patch_embed"] = P(ax.dp, None, None)
+    if with_stub and cfg.family == "encdec":
+        specs["src_embed"] = P(ax.dp, None, None)
+    return specs
 
 
 def _bf16(x: np.ndarray) -> torch.Tensor:
@@ -73,12 +85,17 @@ class SyntheticPipeline:
             ))
         return batch
 
-    def device_batch(self, step: int, device=None) -> dict:
+    def device_batch(self, step: int, device=None, mesh=None, ax=None) -> dict:
         """``batch_at(step)`` as tensors on ``device`` (the card by
-        default; ``"cpu"`` when asked)."""
+        default; ``"cpu"`` when asked); with ``mesh`` (and its
+        ``MeshAxes`` ``ax``) as DTensors laid out by ``batch_specs``."""
         dev = resolve_device(device)
-        return {k: (x if isinstance(x, torch.Tensor) else torch.from_numpy(x)).to(dev)
-                for k, x in self.batch_at(step).items()}
+        batch = {k: (x if isinstance(x, torch.Tensor) else torch.from_numpy(x)).to(dev)
+                 for k, x in self.batch_at(step).items()}
+        if mesh is None:
+            return batch
+        specs = batch_specs(self.cfg, ax)
+        return {k: distribute(x, specs[k], mesh) for k, x in batch.items()}
 
 
 def shapes_for_cell(cfg: ArchConfig, cell: ShapeCell) -> dict[str, TensorSpec]:

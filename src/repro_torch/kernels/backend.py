@@ -10,15 +10,18 @@ fallback anywhere.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None``/``"cuda"`` -> ``cuda:0`` (raises without CUDA); ``"cpu"``
-    -> the CPU; ``"cuda:<i>"`` -> that card."""
+    -> the CPU; ``"cuda:<i>"`` -> that card; ``"meta"`` -> shapes and
+    dtypes only, no storage (``train_step.state_shape``)."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dev
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {device!r} (want 'cuda' or 'cpu')")
@@ -41,6 +44,17 @@ def as_u8(x, device: str | torch.device | None = None) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device))
     return t if t.dtype == torch.uint8 else t.to(torch.uint8)
+
+
+def reject_dtensor(what: str, *tensors) -> None:
+    """A kernel wrapper takes plain tensors: it reads raw pointers, which a
+    DTensor (one rank's shard of a global value) would silently hand it.
+    Raises TypeError for a DTensor operand; the call site unwraps its
+    shards through ``local_map``."""
+    dtensor = sys.modules.get("torch.distributed.tensor")  # no DTensor before its import
+    if dtensor is not None and any(isinstance(t, dtensor.DTensor) for t in tensors):
+        raise TypeError(f"{what} takes plain tensors, not DTensors: call it on each rank's "
+                        "shard (torch.distributed.tensor.experimental.local_map)")
 
 
 def check_cuda_operands(width: int, what: str, *tensors: torch.Tensor) -> None:

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.coding import gf256
 from repro_torch.kernels import _build
-from repro_torch.kernels.backend import check_cuda_operands, raw_stream
+from repro_torch.kernels.backend import check_cuda_operands, raw_stream, reject_dtensor
 
 DEFAULT_BLOCK_N = 32768
 
@@ -72,6 +72,7 @@ def _check(mc: torch.Tensor, data: torch.Tensor, block_n: int, batched: bool) ->
 
 
 def _launch(mc: torch.Tensor, data: torch.Tensor, block_n: int, batched: bool) -> torch.Tensor:
+    reject_dtensor("gf256_matmul_planes", mc, data)
     _check(mc, data, block_n, batched)
     if data.device.type == "cpu":
         return gf_matmul_plain(mc, data)

@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.backend import check_cuda_operands, raw_stream
+from repro_torch.kernels.backend import check_cuda_operands, raw_stream, reject_dtensor
 
 # Launch-size rungs, in tiles. Two rungs bound the launch signatures per
 # kind at 2 while keeping null-tile padding under CHUNK_SMALL per window
@@ -115,6 +115,7 @@ def _check_cuda(data: torch.Tensor, mc: torch.Tensor | None, tn: int) -> None:
 
 
 def launch_gf(entry: str, mc: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    reject_dtensor(entry, mc, data)
     c, kk, tn = _check(data, mc)
     if data.device.type == "cpu":
         return gf_tiles_plain(mc, data)
@@ -126,6 +127,7 @@ def launch_gf(entry: str, mc: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 def launch_xor(entry: str, data: torch.Tensor) -> torch.Tensor:
+    reject_dtensor(entry, data)
     c, kk, tn = _check(data, None)
     if data.device.type == "cpu":
         return xor_tiles_plain(data)

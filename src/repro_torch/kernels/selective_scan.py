@@ -38,7 +38,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.backend import raw_stream
+from repro_torch.kernels.backend import raw_stream, reject_dtensor
 
 
 # the C entry's body codes (csrc/selective_scan.cu kBody*)
@@ -92,6 +92,7 @@ def selective_scan_plain(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor,
 
 
 def _check(da, dbu, cm, h0) -> None:
+    reject_dtensor("selective_scan", da, dbu, cm, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (da, dbu, cm, h0)):
         raise ValueError("selective_scan (K8) has no backward: an operand requires grad "

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.backend import check_cuda_operands, raw_stream
+from repro_torch.kernels.backend import check_cuda_operands, raw_stream, reject_dtensor
 
 DEFAULT_BLOCK_N = 65536
 
@@ -27,6 +27,7 @@ def xor_rows_plain(data: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(data: torch.Tensor, block_n: int, batched: bool) -> torch.Tensor:
+    reject_dtensor("xor_parity", data)
     want = 3 if batched else 2
     if data.dtype != torch.uint8 or data.dim() != want:
         shape = "(B, T, N)" if batched else "(T, N)"

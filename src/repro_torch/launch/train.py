@@ -2,22 +2,36 @@
 
     python -m repro_torch.launch.train --arch olmoe_1b_7b [--reduced] \\
         [--steps 200 --seq-len 256 --global-batch 8 --ckpt-every 50] \\
-        [--quantize-v] [--device cuda|cpu] [--seed 0]
+        [--quantize-v] [--device cuda|cpu] [--seed 0] [--mesh 2x2 [--devices 4]]
 
-The single-process engine (train/loop.py) on one device: the card by
-default, raising without one; ``--device cpu`` runs the plain torch path
-on the host. The CORE checkpoint layer is always on. ``--arch`` takes
-every id of the JAX package (the ssm, dense, vlm, moe, hybrid and
-encdec families; the encdec batches carry the pipeline's ``src_embed``
-frames). The reference's ``--mesh`` and ``--devices`` raise
-``NotImplementedError``: they wait for the mesh slice (ROADMAP queue 1).
-Ends with ``done at step N; final loss X``.
+The engine (train/loop.py) on one device: the card by default, raising
+without one; ``--device cpu`` runs the plain torch path on the host. The
+CORE checkpoint layer is always on. ``--arch`` takes every id of the JAX
+package (the ssm, dense, vlm, moe, hybrid and encdec families; the
+encdec batches carry the pipeline's ``src_embed`` frames).
+
+``--mesh DxM`` (or ``PxDxM``; axes (data, model) or (pod, data, model))
+trains sharded on that mesh: the launcher spawns one rank process per
+mesh position (``--devices``, if given, must equal the mesh's size).
+The ranks meet through a ``file://`` rendezvous in a temporary
+directory: NCCL on the card, one rank per card (more ranks than cards
+raise ValueError), gloo with ``--device cpu``. A rank that dies fails
+the others within ``RANK_TIMEOUT_S`` seconds. ``--quantize-v`` on a mesh
+raises NotImplementedError. ``--devices`` alone builds no mesh, as in
+the reference. Only rank 0 prints; the run ends with ``done at step N;
+final loss X``.
 """
 
 from __future__ import annotations
 
 import argparse
+import math
+import os
 import sys
+import tempfile
+
+# how long a rank waits for the others in a collective before it fails
+RANK_TIMEOUT_S = 300.0
 
 
 def main(argv=None) -> int:
@@ -33,20 +47,54 @@ def main(argv=None) -> int:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--reduced", action="store_true",
                     help="train the smoke-sized sibling of --arch (CPU-friendly)")
-    ap.add_argument("--mesh", default=None, help="not ported yet (the mesh slice)")
+    ap.add_argument("--mesh", default=None, help='e.g. "2x2": axes (data, model)')
     ap.add_argument("--devices", type=int, default=None,
-                    help="not ported yet (the mesh slice)")
+                    help="rank processes (default: the mesh's size)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--quantize-v", action="store_true",
                     help="int8 blockwise second moment (8-bit optimizer)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh or args.devices:
-        raise NotImplementedError(
-            "--mesh / --devices wait for the mesh slice (ROADMAP queue 1); "
-            "the port trains on one device")
+    if args.mesh is None:  # as in the reference, --devices alone builds no mesh
+        return _train(args)
+    dims = tuple(int(x) for x in args.mesh.split("x"))
+    world = args.devices or math.prod(dims)
+    if world != math.prod(dims):
+        raise ValueError(f"--mesh {args.mesh} takes {math.prod(dims)} ranks, not --devices {world}")
+    if (args.device or "cuda").startswith("cuda"):
+        import torch
 
+        if world > torch.cuda.device_count():
+            raise ValueError(f"{world} ranks need {world} cards (NCCL takes one rank per "
+                             f"card); this host has {torch.cuda.device_count()}")
+    if args.quantize_v:
+        raise NotImplementedError("--quantize-v on a mesh is not ported (ROADMAP queue 1)")
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="repro-rdv-") as tmp:
+        rdv = "file://" + os.path.join(tmp, "rendezvous")
+        mp.spawn(_rank_main, args=(world, rdv, dims, args), nprocs=world, join=True)
+    return 0
+
+
+def _rank_main(rank: int, world: int, rdv: str, dims: tuple, args) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    if args.device == "cpu":
+        torch.set_num_threads(1)  # the ranks share the host's cores
+    init_ranks(rank, world, rdv, args.device, RANK_TIMEOUT_S)
+    try:
+        axes = ("pod", "data", "model")[-len(dims):]
+        _train(args, make_mesh(dims, axes, device=args.device), quiet=rank != 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, mesh=None, quiet: bool = False) -> int:
     from repro_torch.configs import get_config
     from repro_torch.train import optimizer as opt
     from repro_torch.train.loop import LoopConfig, Trainer
@@ -62,10 +110,12 @@ def main(argv=None) -> int:
     oc = opt.OptConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                        decay_steps=args.steps, quantize_v=args.quantize_v)
 
-    trainer = Trainer(cfg, lc, oc, device=args.device)
+    trainer = Trainer(cfg, lc, oc, mesh=mesh, device=args.device)
     state = trainer.run()
-    print(f"done at step {int(state.step)}; "
-          f"final loss {trainer.metrics_log[-1]['loss']:.4f}")
+    step = state.step.full_tensor() if mesh is not None else state.step
+    if not quiet:
+        print(f"done at step {int(step)}; "
+              f"final loss {trainer.metrics_log[-1]['loss']:.4f}", flush=True)
     return 0
 
 

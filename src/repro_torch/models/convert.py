@@ -159,3 +159,29 @@ def load_stacked(model: nn.Module, tree: dict) -> None:
         path, layer = _split(name)
         leaf = _get(tree, path)
         p.copy_(leaf if layer is None else leaf[layer])
+
+
+def param_specs(model: nn.Module, specs: dict) -> dict:
+    """{parameter name: P} of ``model`` from the reference's stacked spec
+    tree ``specs`` (its family's ``lm_specs``): a layer parameter takes
+    its stacked leaf's spec without the leading layer entry."""
+    out = {}
+    for name, _ in model.named_parameters():
+        path, layer = _split(name)
+        spec = _get(specs, path)
+        out[name] = spec if layer is None else type(spec)(*spec[1:])
+    return out
+
+
+@torch.no_grad()
+def distribute_params(model: nn.Module, specs: dict, mesh, src_rank: int | None = None) -> None:
+    """Replace each parameter of ``model`` by a DTensor laid out by its
+    spec on ``mesh`` (``shardings.distribute``), keeping requires_grad."""
+    from repro_torch.models.shardings import distribute
+
+    for name, spec in param_specs(model, specs).items():
+        mod_name, _, attr = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        old = getattr(mod, attr)
+        new = distribute(old.detach(), spec, mesh, src_rank)
+        setattr(mod, attr, nn.Parameter(new, requires_grad=old.requires_grad))

@@ -34,7 +34,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models import transformer as T
-from repro_torch.models.shardings import SINGLE, MeshAxes, ServePlan
+from repro_torch.models.shardings import SINGLE, MeshAxes, P, ServePlan, constrain
 
 
 def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -107,17 +107,42 @@ def init_lm(cfg: ArchConfig, seed: int | None = 0, *, device=None,
 # ---------------------------------------------------------------------------
 
 
+def dec_layer_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    return {
+        "ln1": T.norm_specs(cfg),
+        "self_attn": T.attn_specs(cfg, ax),
+        "ln2": T.norm_specs(cfg),
+        "cross_attn": T.attn_specs(cfg, ax),
+        "ln3": T.norm_specs(cfg),
+        "ffn": T.mlp_specs(cfg, ax),
+    }
+
+
+def lm_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    return {
+        "embed": P(ax.tp_if(cfg.vocab_size), ax.fsdp_if(cfg.d_model)),
+        "enc": stack.stacked_specs(T.decoder_layer_specs(cfg, ax)),
+        "dec": stack.stacked_specs(dec_layer_specs(cfg, ax)),
+        "ln_enc": T.norm_specs(cfg),
+        "ln_dec": T.norm_specs(cfg),
+        "head": P(ax.fsdp_if(cfg.d_model), ax.tp_if(cfg.vocab_size)),
+    }
+
+
 def encode(params: EncDecLM, src_embed, cfg: ArchConfig, ax: MeshAxes = SINGLE):
     """src_embed: (B, T, D) precomputed frames -> encoder states (B, T, D)."""
     src = T._on(src_embed, params.device)
     t, d = src.shape[1], src.shape[2]
     pos = sinusoid(torch.arange(t, device=src.device), d)
     x = src.to(torch.bfloat16) + pos[None].to(torch.bfloat16)
+    x = constrain(x, T.res_spec(ax, t))
 
     def body(h, lp):
         h = h + L.attention_train(L.norm(h, lp.ln1, cfg), lp.attn, cfg, ax, None,
                                   bidirectional=True)
-        return h + L.mlp(L.norm(h, lp.ln2, cfg), lp.ffn, cfg, ax)
+        h = constrain(h, T.res_spec(ax, t))
+        h = h + L.mlp(L.norm(h, lp.ln2, cfg), lp.ffn, cfg, ax)
+        return constrain(h, T.res_spec(ax, t))
 
     x = stack.scan_layers(body, x, params.enc)
     return L.norm(x, params.ln_enc, cfg)
@@ -132,15 +157,21 @@ def _cross_kv(mem, lp: DecLayer, cfg: ArchConfig):
 
 
 def apply_dec_layer(x, lp: DecLayer, mem, cfg: ArchConfig, ax: MeshAxes = SINGLE):
+    s = x.shape[1]
     x = x + L.attention_train(L.norm(x, lp.ln1, cfg), lp.self_attn, cfg, ax, None)
+    x = constrain(x, T.res_spec(ax, s))
     mk, mv = _cross_kv(mem, lp, cfg)
     x = x + L.cross_attention(L.norm(x, lp.ln2, cfg), mk, mv, lp.cross_attn, cfg, ax)
-    return x + L.mlp(L.norm(x, lp.ln3, cfg), lp.ffn, cfg, ax)
+    x = constrain(x, T.res_spec(ax, s))
+    x = x + L.mlp(L.norm(x, lp.ln3, cfg), lp.ffn, cfg, ax)
+    return constrain(x, T.res_spec(ax, s))
 
 
-def _embed_dec(params: EncDecLM, tokens, cfg: ArchConfig, positions: torch.Tensor):
-    x = L.embed_tokens(params.embed, tokens)
-    return x + sinusoid(positions.to(x.device), cfg.d_model)[None].to(x.dtype)
+def _embed_dec(params: EncDecLM, tokens, cfg: ArchConfig, positions: torch.Tensor,
+               ax: MeshAxes = SINGLE):
+    x = L.embed_tokens(params.embed, tokens, ax)
+    x = x + sinusoid(positions.to(x.device), cfg.d_model)[None].to(x.dtype)
+    return constrain(x, T.res_spec(ax, x.shape[1]))
 
 
 def lm_loss(params: EncDecLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGLE):
@@ -150,7 +181,7 @@ def lm_loss(params: EncDecLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGL
     head."""
     mem = encode(params, batch["src_embed"], cfg, ax)
     s = batch["tokens"].shape[1]
-    x = _embed_dec(params, batch["tokens"], cfg, torch.arange(s))
+    x = _embed_dec(params, batch["tokens"], cfg, torch.arange(s), ax)
 
     def body(h, lp):
         return apply_dec_layer(h, lp, mem, cfg, ax)
@@ -183,6 +214,14 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, mem_len: int | None 
             for k, spec in cache_shape(cfg, batch, cache_len, mem_len).items()}
 
 
+def cache_specs(cfg: ArchConfig, ax: MeshAxes, batch: int, plan: ServePlan) -> dict:
+    b = plan.batch_axes or None
+    kv_spec = P(None, b, plan.seq_axes if plan.seq_axes else None,
+                plan.kv_axes if plan.kv_axes else None, None)
+    mem_spec = P(None, b, None, plan.kv_axes if plan.kv_axes else None, None)
+    return {"k": kv_spec, "v": kv_spec, "mem_k": mem_spec, "mem_v": mem_spec}
+
+
 @torch.inference_mode()
 def prefill(params: EncDecLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             cache_len: int = 0, src_embed=None):
@@ -191,7 +230,7 @@ def prefill(params: EncDecLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
     when that is longer, and each layer's cross-attention memory."""
     mem = encode(params, src_embed, cfg, ax)
     s = tokens.shape[1]
-    x = _embed_dec(params, tokens, cfg, torch.arange(s))
+    x = _embed_dec(params, tokens, cfg, torch.arange(s), ax)
     b = x.shape[0]
     shape = (cfg.dec_layers, b, max(cache_len, s), cfg.num_kv_heads, cfg.head_dim)
     cache = {k: torch.zeros(shape, dtype=torch.bfloat16, device=x.device) for k in ("k", "v")}
@@ -199,16 +238,18 @@ def prefill(params: EncDecLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
     for i, lp in enumerate(params.dec):
         q, k, v = L.qkv_proj(L.norm(x, lp.ln1, cfg), lp.self_attn, cfg, ax, None)
         o = L.attention_core_train(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg), cfg, ax)
-        x = x + L._dense_of(o, lp.self_attn.wo)
+        x = constrain(x + L._dense_of(o, lp.self_attn.wo), T.res_spec(ax, s))
         mk, mv = _cross_kv(mem, lp, cfg)
         x = x + L.cross_attention(L.norm(x, lp.ln2, cfg), mk, mv, lp.cross_attn, cfg, ax)
+        x = constrain(x, T.res_spec(ax, s))
         x = x + L.mlp(L.norm(x, lp.ln3, cfg), lp.ffn, cfg, ax)
+        x = constrain(x, T.res_spec(ax, s))
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
         mks.append(mk.to(torch.bfloat16))
         mvs.append(mv.to(torch.bfloat16))
     x = L.norm(x, params.ln_dec, cfg)
-    logits = L.unembed(x[:, -1:], params.head, cfg.vocab_size)
+    logits = L.unembed(x[:, -1:], params.head, cfg.vocab_size, ax)
     cache["mem_k"], cache["mem_v"] = torch.stack(mks), torch.stack(mvs)
     return logits[:, 0], cache
 
@@ -221,7 +262,7 @@ def decode_step(params: EncDecLM, token, cache: dict, pos, cfg: ArchConfig,
     new cache); ``cache`` is left as it was."""
     plan = plan or ServePlan()
     pos = int(pos)
-    x = _embed_dec(params, token, cfg, torch.full((1,), pos))
+    x = _embed_dec(params, token, cfg, torch.full((1,), pos), ax)
 
     def body(h, lp, lc):
         o, nk, nv = L.attention_decode_general(L.norm(h, lp.ln1, cfg), lc["k"], lc["v"],
@@ -234,5 +275,5 @@ def decode_step(params: EncDecLM, token, cache: dict, pos, cfg: ArchConfig,
 
     x, new_cache = stack.scan_layers_with_cache(body, x, params.dec, cache)
     x = L.norm(x, params.ln_dec, cfg)
-    logits = L.unembed(x, params.head, cfg.vocab_size)
+    logits = L.unembed(x, params.head, cfg.vocab_size, ax)
     return logits[:, 0], new_cache

@@ -21,9 +21,11 @@ heads never expanded (``_grouped_attend``). The products are plain
 attention: ``einsum_f32`` follows the reference's non-TPU branch (the
 product in the operands' dtype, then upcast), which on the card is a
 bf16 product accumulated in float32 and rounded once. The reference's
-sequence-sharded decode (a ``shard_map`` flash combine) waits for the
-mesh slice. ``cross_attention`` (the encdec family) attends queries over
-a precomputed memory, unmasked and unchunked, as the reference does.
+sequence-sharded decode (a ``shard_map`` flash combine) is ``local_map``
+over DTensor caches with explicit ``all_reduce``s. ``cross_attention``
+(the encdec family) attends queries over a precomputed memory, unmasked
+and unchunked, as the reference does. ``constrain`` pins activations at
+the reference's sites; it is the identity unless they are DTensors.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.shardings import MeshAxes, ServePlan
+from repro_torch.models.shardings import (SINGLE, MeshAxes, P, ServePlan, constrain, distribute,
+                                          gather_inner, is_dtensor, pin_grad, placements)
 
 
 class TensorSpec(NamedTuple):
@@ -118,7 +121,8 @@ class Dense(nn.Module):
 
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
-    y = x @ w if x.dtype == w.dtype else torch.matmul(*_promote(x, w))
+    x = gather_inner(x)
+    y = pin_grad(x @ w if x.dtype == w.dtype else torch.matmul(*_promote(x, w)))
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -236,28 +240,54 @@ def _attend_chunk(qc, k, v, inv: float, mask=None) -> torch.Tensor:
     return torch.einsum("bhqt,bthd->bqhd", *_promote(w, v))
 
 
+def _per_head_shard(fn, ax: MeshAxes, q, k, v):
+    """``fn(q, k, v) -> (B, S, H * D)``, attention over (B, S, H, D)
+    operands, independent for each (batch row, head). On DTensors each
+    rank runs ``fn`` on its (dp rows, tp heads) shard (``local_map``),
+    the layout the reference pins with ``constrain``; DTensor's einsum
+    would flatten (batch, heads) with the heads sharded, which torch 2.11
+    refuses."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, tp = q.device_mesh, ax.tp_if(q.shape[2])
+    heads = list(placements(P(ax.dp, None, tp, None), mesh))
+    return local_map(fn, out_placements=list(placements(P(ax.dp, None, tp), mesh)),
+                     in_placements=(heads, heads, heads), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def attention_core_train(q, k, v, cfg: ArchConfig, ax: MeshAxes, base_pos: int = 0):
     """Chunked causal attention. q, k, v: (B, S, H, D) (kv already
     expanded). A loop over ``fit_chunk(S, attn_chunk)`` query chunks,
     each chunk's scores (B, H, chunk, S) float32. Returns (B, S, H * D)."""
-    b, s, h, d = q.shape
-    chunk = fit_chunk(s, cfg.attn_chunk)
-    inv = 1.0 / math.sqrt(d)
-    pos_k = base_pos + torch.arange(s, device=q.device)
-    outs = []
-    for c0 in range(0, s, chunk):
-        mask = _causal_window_mask(pos_k[c0 : c0 + chunk], pos_k, cfg.sliding_window)
-        outs.append(_attend_chunk(q[:, c0 : c0 + chunk], k, v, inv, mask[None, None]))
-    return torch.cat(outs, dim=1).reshape(b, s, h * d)
+
+    def core(q, k, v):
+        b, s, h, d = q.shape
+        chunk = fit_chunk(s, cfg.attn_chunk)
+        inv = 1.0 / math.sqrt(d)
+        pos_k = base_pos + torch.arange(s, device=q.device)
+        outs = []
+        for c0 in range(0, s, chunk):
+            mask = _causal_window_mask(pos_k[c0 : c0 + chunk], pos_k, cfg.sliding_window)
+            outs.append(_attend_chunk(q[:, c0 : c0 + chunk], k, v, inv, mask[None, None]))
+        return torch.cat(outs, dim=1).reshape(b, s, h * d)
+
+    return _per_head_shard(core, ax, q, k, v)
 
 
-def _attention_full_bidir(q, k, v, cfg: ArchConfig):
+def _attention_full_bidir(q, k, v, cfg: ArchConfig, ax: MeshAxes = SINGLE):
     """Unmasked attention in the same query chunks."""
-    b, s, h, d = q.shape
-    chunk = fit_chunk(s, cfg.attn_chunk)
-    inv = 1.0 / math.sqrt(d)
-    outs = [_attend_chunk(q[:, c0 : c0 + chunk], k, v, inv) for c0 in range(0, s, chunk)]
-    return torch.cat(outs, dim=1).reshape(b, s, h * d)
+
+    def core(q, k, v):
+        b, s, h, d = q.shape
+        chunk = fit_chunk(s, cfg.attn_chunk)
+        inv = 1.0 / math.sqrt(d)
+        outs = [_attend_chunk(q[:, c0 : c0 + chunk], k, v, inv) for c0 in range(0, s, chunk)]
+        return torch.cat(outs, dim=1).reshape(b, s, h * d)
+
+    return _per_head_shard(core, ax, q, k, v)
 
 
 def attention_train(x, p: Attn, cfg: ArchConfig, ax: MeshAxes, positions=None,
@@ -271,8 +301,10 @@ def attention_train(x, p: Attn, cfg: ArchConfig, ax: MeshAxes, positions=None,
     q, k, v = qkv_proj(x, p, cfg, ax,
                        positions if (cfg.use_rope and cfg.head_dim % 2 == 0) else None)
     k, v = expand_kv(k, cfg), expand_kv(v, cfg)
+    heads = P(ax.dp, None, ax.tp_if(cfg.num_heads), None)
+    q, k, v = constrain(q, heads), constrain(k, heads), constrain(v, heads)
     if bidirectional:
-        o = _attention_full_bidir(q, k, v, cfg)
+        o = _attention_full_bidir(q, k, v, cfg, ax)
     else:
         o = attention_core_train(q, k, v, cfg, ax)
     return _dense_of(o, p.wo)
@@ -284,12 +316,16 @@ def cross_attention(x, mem_k, mem_v, p: Attn, cfg: ArchConfig, ax: MeshAxes):
     the weights cast to x's dtype, then the value product."""
     b, s, _ = x.shape
     q = _dense_of(x, p.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    scores = torch.einsum("bqhd,bthd->bhqt", *_promote(q, mem_k)).to(torch.float32)
-    scores.mul_(1.0 / math.sqrt(cfg.head_dim))
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    del scores
-    o = torch.einsum("bhqt,bthd->bqhd", *_promote(w, mem_v)).reshape(b, s, cfg.q_dim)
-    return _dense_of(o, p.wo)
+
+    def core(q, mem_k, mem_v):
+        scores = torch.einsum("bqhd,bthd->bhqt", *_promote(q, mem_k)).to(torch.float32)
+        scores.mul_(1.0 / math.sqrt(cfg.head_dim))
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        del scores
+        o = torch.einsum("bhqt,bthd->bqhd", *_promote(w, mem_v))
+        return o.reshape(o.shape[0], s, -1)
+
+    return _dense_of(_per_head_shard(core, ax, q, mem_k, mem_v), p.wo)
 
 
 # -- decode (KV cache) --------------------------------------------------------
@@ -329,11 +365,8 @@ def attention_decode_general(x1, cache_k, cache_v, p: Attn, cfg: ArchConfig, ax:
     the token's k and v written at slot ``pos % T`` of new caches (the
     inputs are left as they were), then grouped attention over the slots
     ``_ring_valid`` admits. Returns (out (B, 1, d_model), cache_k,
-    cache_v). A sequence-sharded plan (``plan.seq_axes``) raises."""
-    if plan.seq_axes:
-        raise NotImplementedError(
-            "the sequence-sharded decode (a flash combine across cards) waits for the "
-            "mesh slice (ROADMAP queue 1)")
+    cache_v). A sequence-sharded plan (``plan.seq_axes``) takes the
+    flash-combine branch (``_decode_seq_sharded``)."""
     b = x1.shape[0]
     smax = cache_k.shape[1]
     q, k1, v1 = qkv_proj(x1, p, cfg, ax, None)
@@ -341,15 +374,88 @@ def attention_decode_general(x1, cache_k, cache_v, p: Attn, cfg: ArchConfig, ax:
         at = torch.full((1,), pos, device=x1.device)
         q = rope(q, at, cfg.rope_theta)
         k1 = rope(k1, at, cfg.rope_theta)
+    if plan.seq_axes:
+        o, cache_k, cache_v = _decode_seq_sharded(q, k1, v1, cache_k, cache_v, cfg, pos, plan,
+                                                  x1.dtype)
+        if not is_dtensor(x1) and is_dtensor(o):
+            o = o.full_tensor()
+        return _dense_of(o, p.wo), cache_k, cache_v
     slot = pos % smax
     cache_k, cache_v = cache_k.clone(), cache_v.clone()
     cache_k[:, slot] = k1[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v1[:, 0].to(cache_v.dtype)
+    bspec = plan.batch_axes or None
+    cache_k = constrain(cache_k, P(bspec, None, plan.kv_axes, None))
+    cache_v = constrain(cache_v, P(bspec, None, plan.kv_axes, None))
     valid = _ring_valid(pos, smax, cfg.sliding_window, x1.device)
     o, _m, l = _grouped_attend(q, cache_k, cache_v, cfg, valid)
     o = (o / l[..., None]).to(x1.dtype)
     o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.q_dim)
     return _dense_of(o, p.wo), cache_k, cache_v
+
+
+def _decode_seq_sharded(q, k1, v1, cache_k, cache_v, cfg: ArchConfig, pos: int,
+                        plan: ServePlan, dtype):
+    """The reference's ``shard_map`` flash combine over a cache whose
+    sequence dim is sharded on ``plan.seq_axes`` (and batch on
+    ``plan.batch_axes``): the caches are DTensors on their mesh. Each
+    rank attends over its T / n slots; the rank owning slot ``pos % T``
+    writes the token's k and v; then ``all_reduce(MAX)`` of m and
+    ``all_reduce(SUM)`` of the rescaled l and o, axis by axis over the
+    seq axes (both axes: the whole mesh). A rank's shard index is its
+    mesh coordinates, last axis minor, as DTensor orders a dim sharded
+    on two mesh dims. Returns (o (B, 1, q_dim) DTensor, cache_k, cache_v)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import local_map
+
+    if not is_dtensor(cache_k):
+        raise TypeError("a sequence-sharded plan takes the caches as DTensors on their mesh")
+    mesh = cache_k.device_mesh
+    names = list(mesh.mesh_dim_names)
+    seq_axes = plan.seq_axes
+    bspec = plan.batch_axes or None
+    smax = cache_k.shape[1]
+    qspec = P(bspec, None, None, None)
+    seq_spec = P(bspec, seq_axes, None, None)
+    q, k1, v1 = (constrain(t, qspec) if is_dtensor(t) else distribute(t, qspec, mesh)
+                 for t in (q, k1, v1))
+    cache_k, cache_v = constrain(cache_k, seq_spec), constrain(cache_v, seq_spec)
+
+    def local(q, k1, v1, ck, cv):
+        sloc = ck.shape[1]
+        idx, mul = 0, 1
+        for a in reversed(seq_axes):
+            idx += mesh.get_local_rank(a) * mul
+            mul *= mesh.size(names.index(a))
+        offset = idx * sloc
+        slot = pos % smax
+        ck, cv = ck.clone(), cv.clone()
+        if offset <= slot < offset + sloc:
+            ck[:, slot - offset] = k1[:, 0].to(ck.dtype)
+            cv[:, slot - offset] = v1[:, 0].to(cv.dtype)
+        tpos = offset + torch.arange(sloc, device=ck.device)
+        abs_pos = pos - torch.remainder(pos - tpos, smax)
+        valid = abs_pos >= 0
+        if cfg.sliding_window is not None:
+            valid &= (pos - abs_pos) < cfg.sliding_window
+        o_loc, m_loc, l_loc = _grouped_attend(q, ck, cv, cfg, valid)
+        m = m_loc.clone()
+        for a in seq_axes:
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=mesh.get_group(a))
+        corr = torch.exp(m_loc - m)
+        l, o = l_loc * corr, o_loc * corr[..., None]
+        for a in seq_axes:
+            dist.all_reduce(l, group=mesh.get_group(a))
+            dist.all_reduce(o, group=mesh.get_group(a))
+        o = (o / l[..., None]).to(dtype)  # (B, KV, G, 1, hd)
+        return o.permute(0, 3, 1, 2, 4).reshape(q.shape[0], 1, cfg.q_dim), ck, cv
+
+    pl = lambda spec: list(placements(spec, mesh))
+    return local_map(local, out_placements=(pl(P(bspec, None, None)), pl(seq_spec),
+                                            pl(seq_spec)),
+                     in_placements=(pl(qspec), pl(qspec), pl(qspec), pl(seq_spec),
+                                    pl(seq_spec)),
+                     device_mesh=mesh)(q, k1, v1, cache_k, cache_v)
 
 
 # ---------------------------------------------------------------------------
@@ -384,9 +490,12 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(x: torch.Tensor, p: Mlp, cfg: ArchConfig, ax: MeshAxes) -> torch.Tensor:
     if cfg.act == "gelu":  # classic 2-matrix MLP (starcoder2, seamless)
-        return _dense_of(_gelu(_dense_of(x, p.wi)), p.wd)
+        h = _gelu(_dense_of(x, p.wi))
+        h = constrain(h, P(ax.dp, None, ax.tp_if(cfg.d_ff)))
+        return _dense_of(h, p.wd)
     gate_act = _gelu if cfg.act == "gelu_gated" else F.silu
     h = gate_act(dense(x, p.wg.w)) * dense(x, p.wu.w)
+    h = constrain(h, P(ax.dp, None, ax.tp_if(cfg.d_ff)))
     return _dense_of(h, p.wd)
 
 
@@ -399,18 +508,23 @@ def init_embed(gen, cfg: ArchConfig, dtype=torch.bfloat16, device=None) -> nn.Pa
     return param(draw(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype, device))
 
 
-def embed_tokens(embed: torch.Tensor, tokens) -> torch.Tensor:
+def embed_tokens(embed: torch.Tensor, tokens, ax: MeshAxes = SINGLE) -> torch.Tensor:
     """tokens (B, S) ints (a tensor, or a numpy array moved to the
     embedding's device) -> (B, S, d_model) in the embedding's dtype."""
     if not isinstance(tokens, torch.Tensor):
         tokens = torch.from_numpy(np.asarray(tokens, dtype=np.int64))
-    return nn.functional.embedding(tokens.to(embed.device, torch.long), embed)
+    # a gathered table: DTensor's vocab-parallel lookup (a masked partial
+    # sum) fails to reduce once the tokens are batch-sharded as well
+    x = nn.functional.embedding(tokens.to(embed.device, torch.long), constrain(embed, P()))
+    return constrain(x, P(ax.dp, None, None))
 
 
-def unembed(x: torch.Tensor, embed_or_head: torch.Tensor, vocab: int) -> torch.Tensor:
+def unembed(x: torch.Tensor, embed_or_head: torch.Tensor, vocab: int,
+            ax: MeshAxes = SINGLE) -> torch.Tensor:
     """Logits in x's dtype; a (vocab, d) weight is the tied embedding."""
     w = embed_or_head.to(x.dtype)
-    return x @ (w.T if w.shape[0] == vocab else w)
+    logits = pin_grad(gather_inner(x) @ (w.T if w.shape[0] == vocab else w))
+    return constrain(logits, P(ax.dp, None, ax.tp_if(vocab)))
 
 
 def xent_loss(logits: torch.Tensor, labels: torch.Tensor, ax: MeshAxes) -> torch.Tensor:

@@ -39,8 +39,8 @@ from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models.layers import TensorSpec
-from repro_torch.models.shardings import SINGLE, MeshAxes, ServePlan
-from repro_torch.models.transformer import _on, chunked_xent
+from repro_torch.models.shardings import SINGLE, MeshAxes, P, ServePlan, constrain
+from repro_torch.models.transformer import _on, chunked_xent, res_spec
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -98,6 +98,30 @@ class MambaLM(nn.Module):
 def init_lm(cfg: ArchConfig, seed: int | None = 0, *, device=None,
             dtype=torch.bfloat16) -> MambaLM:
     return MambaLM(cfg, device=device, seed=seed, dtype=dtype)
+
+
+def mamba_layer_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    tp = ax.tp_if(cfg.d_inner)
+    fs = ax.fsdp_if(cfg.d_model)
+    return {
+        "norm": {"scale": P(None)},
+        "in_proj": {"w": P(fs, tp)},
+        "conv_w": P(None, tp),
+        "conv_b": P(tp),
+        "x_proj": {"w": P(tp, None)},
+        "dt_proj": {"w": P(None, tp), "b": P(tp)},
+        "a_log": P(tp, None),
+        "d_skip": P(tp),
+        "out_proj": {"w": P(tp, fs)},
+    }
+
+
+def lm_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    return {
+        "embed": P(ax.tp_if(cfg.vocab_size), ax.fsdp_if(cfg.d_model)),
+        "layers": stack.stacked_specs(mamba_layer_specs(cfg, ax)),
+        "ln_f": {"scale": P(None)},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -189,11 +213,12 @@ def mamba_mix(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE, init_sta
     train = _needs_grad(x, p, init_state)
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
-    xz = L.dense(x, p.in_proj.w)  # (B,S,2di)
+    act = P(ax.dp, None, ax.tp_if(di))
+    xz = constrain(L.dense(x, p.in_proj.w), act)  # (B,S,2di)
     u, z = xz.split(di, dim=-1)
     conv0 = init_state["conv"] if init_state else None
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv0)
-    u = F.silu(u)
+    u = constrain(F.silu(u), act)
 
     chunk = L.fit_chunk(s, cfg.scan_chunk)
     h = init_state["ssm"] if init_state else torch.zeros((b, di, n), dtype=torch.float32,
@@ -209,7 +234,7 @@ def mamba_mix(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE, init_sta
         ys.append(y.to(x.dtype))
     y = torch.cat(ys, dim=1)
     y = y + u * p.d_skip.to(u.dtype)
-    y = y * F.silu(z)
+    y = constrain(y * F.silu(z), act)
     out = L.dense(y, p.out_proj.w)
     return out, {"conv": conv_state, "ssm": h}
 
@@ -229,7 +254,8 @@ def lm_loss(params: MambaLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGLE
     optional loss_mask, each (B, S)): embedding, the layers with
     per-layer remat, ``ln_f``, and ``chunked_xent`` against the tied
     embedding."""
-    x = L.embed_tokens(params.embed, batch["tokens"])
+    x = L.embed_tokens(params.embed, batch["tokens"], ax)
+    x = constrain(x, res_spec(ax, x.shape[1]))
 
     def body(h, lp):
         return apply_mamba_layer(h, lp, cfg, ax)
@@ -239,6 +265,15 @@ def lm_loss(params: MambaLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGLE
     mask = batch.get("loss_mask")
     return chunked_xent(x, params.embed, _on(batch["labels"], x.device), cfg, ax,
                         None if mask is None else _on(mask, x.device))
+
+
+def cache_specs(cfg: ArchConfig, ax: MeshAxes, batch: int, plan: ServePlan) -> dict:
+    b = plan.batch_axes or None
+    tp = ax.tp_if(cfg.d_inner)
+    return {
+        "conv": P(None, b, None, tp),
+        "ssm": P(None, b, tp, None),
+    }
 
 
 def cache_shape(cfg: ArchConfig, batch: int, cache_len: int = 0) -> dict[str, TensorSpec]:
@@ -269,9 +304,10 @@ def prefill(params: MambaLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             cache_len: int = 0):
     """Run the full prompt, returning last-token logits (B, vocab) and the
     decode state stacked over layers."""
-    x = L.embed_tokens(params.embed, tokens)
+    x = L.embed_tokens(params.embed, tokens, ax)
+    x = constrain(x, res_spec(ax, x.shape[1]))
     x, states = _run_layers(params, x, cfg, ax, None)
-    logits = L.unembed(x[:, -1:], params.embed, cfg.vocab_size)
+    logits = L.unembed(x[:, -1:], params.embed, cfg.vocab_size, ax)
     return logits[:, 0], states
 
 
@@ -280,7 +316,7 @@ def decode_step(params: MambaLM, token, cache, pos, cfg: ArchConfig, ax: MeshAxe
                 plan: ServePlan | None = None):
     """Single-token decode: conv ring shift + one recurrence step. token
     (B, 1); ``pos`` is unused (the state carries the position)."""
-    x = L.embed_tokens(params.embed, token)  # (B,1,D)
+    x = L.embed_tokens(params.embed, token, ax)  # (B,1,D)
     x, new_cache = _run_layers(params, x, cfg, ax, cache)
-    logits = L.unembed(x, params.embed, cfg.vocab_size)
+    logits = L.unembed(x, params.embed, cfg.vocab_size, ax)
     return logits[:, 0], new_cache

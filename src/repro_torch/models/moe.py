@@ -24,8 +24,11 @@ the reference's result:
   prefill), so the rows are gathered by advanced indexing on the token
   axis.
 
-The reference's ``ep_axis``, ``expert_ff_axis`` and ``moe_specs`` (expert
-placement on a mesh) wait for the mesh slice.
+Expert placement on a mesh (``ep_axis``, ``expert_ff_axis``,
+``moe_specs``) is the reference's: the expert dim on tp when it divides,
+else each expert's FFN hidden dim on tp. ``constrain`` pins the
+reference's layouts; the moe train step does not yet run on a mesh
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -38,7 +41,30 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.shardings import SINGLE, MeshAxes
+from repro_torch.models.shardings import SINGLE, MeshAxes, P, constrain
+
+
+def ep_axis(cfg: ArchConfig, ax: MeshAxes):
+    return ax.tp if (ax.tp and cfg.num_experts % ax.tp_size == 0) else None
+
+
+def expert_ff_axis(cfg: ArchConfig, ax: MeshAxes):
+    """TP inside each expert's FFN, only when experts are not EP-sharded."""
+    if ep_axis(cfg, ax) is not None:
+        return None
+    return ax.tp_if(cfg.d_ff)
+
+
+def moe_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    ep = ep_axis(cfg, ax)
+    ff = expert_ff_axis(cfg, ax)
+    fs = ax.fsdp_if(cfg.d_model)
+    return {
+        "router": {"w": P(fs, None)},
+        "wg": P(ep, fs, ff),
+        "wu": P(ep, fs, ff),
+        "wd": P(ep, ff, fs),
+    }
 
 
 class Moe(nn.Module):
@@ -116,18 +142,21 @@ def moe_ffn(x: torch.Tensor, p: Moe, cfg: ArchConfig, ax: MeshAxes = SINGLE):
     rows = torch.arange(b, device=x.device)
     xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     xe = xpad[rows[:, None, None], dispatch]
+    ep, ff = ep_axis(cfg, ax), expert_ff_axis(cfg, ax)
+    xe = constrain(xe, P(ax.dp, ep, None, None))
 
     # the expert FFN, batched over E
     act = L._gelu if cfg.act.startswith("gelu") else F.silu
     h = act(torch.einsum("becd,edf->becf", xe, p.wg)) * torch.einsum(
         "becd,edf->becf", xe, p.wu)
-    ye = torch.einsum("becf,efd->becd", h, p.wd)
+    h = constrain(h, P(ax.dp, ep, None, ff))
+    ye = constrain(torch.einsum("becf,efd->becd", h, p.wd), P(ax.dp, ep, None, None))
 
     # combine: gather back each token's kk expert outputs
     yflat = torch.cat([ye.reshape(b, e * cap, d), ye.new_zeros((b, 1, d))], dim=1)
     yk = yflat[rows[:, None], slot].reshape(b, s, kk, d)
     gk = (gates * keep.reshape(b, s, kk)).to(yk.dtype)
-    return torch.einsum("bskd,bsk->bsd", yk, gk), aux
+    return constrain(torch.einsum("bskd,bsk->bsd", yk, gk), P(ax.dp, None, None)), aux
 
 
 def moe_ffn_noaux(x: torch.Tensor, p: Moe, cfg: ArchConfig,

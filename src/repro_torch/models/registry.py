@@ -23,18 +23,20 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import encdec, mamba, moe, rglru, stack
 from repro_torch.models import transformer as T
-from repro_torch.models.shardings import SINGLE
+from repro_torch.models.shardings import SINGLE, P, constrain
 
 
 @dataclass(frozen=True)
 class ModelApi:
     family: str
     init: Callable  # (cfg, seed, *, device, dtype) -> params (unset when seed is None)
+    specs: Callable  # (cfg, ax) -> tree of P (the reference's stacked layout)
     loss: Callable  # (params, batch, cfg, ax) -> scalar
     prefill: Callable  # (params, batch, cfg, ax, cache_len) -> (logits, cache)
     decode: Callable  # (params, token, cache, pos, cfg, ax, plan) -> (logits, cache)
     init_cache: Callable  # (cfg, batch, cache_len, *, device) -> cache
     cache_shape: Callable  # (cfg, batch, cache_len) -> a tree of TensorSpec
+    cache_specs: Callable  # (cfg, ax, batch, plan) -> tree of P
 
 
 # -- dense / vlm --------------------------------------------------------------
@@ -48,11 +50,13 @@ def _dense_prefill(params, batch, cfg, ax, cache_len):
 DENSE = ModelApi(
     family="dense",
     init=T.init_lm,
+    specs=T.lm_specs,
     loss=T.lm_loss,
     prefill=_dense_prefill,
     decode=T.decode_step,
     init_cache=T.init_cache,
     cache_shape=T.cache_shape,
+    cache_specs=T.cache_specs,
 )
 
 VLM = DENSE  # the patch-embedding stub prefix is handled inside loss/prefill
@@ -66,17 +70,31 @@ def _moe_init(cfg, seed=0, *, device=None, dtype=torch.bfloat16):
     return T.TransformerLM(cfg, device=device, seed=seed, dtype=dtype, ffn_init=moe.init_moe)
 
 
+def _moe_specs(cfg, ax):
+    specs = {
+        "embed": T.embed_specs(cfg, ax),
+        "layers": stack.stacked_specs(T.decoder_layer_specs(cfg, ax, ffn_specs=moe.moe_specs)),
+        "ln_f": T.norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = P(ax.fsdp_if(cfg.d_model), ax.tp_if(cfg.vocab_size))
+    return specs
+
+
 def _moe_loss(params, batch, cfg, ax=SINGLE):
     """The dense LM's wiring with each layer's load-balance aux carried
     through the fold (weight 0.01, Switch-style), each layer
     rematerialized: the reference's own fold, never the two-level one."""
-    x = L.embed_tokens(params.embed, batch["tokens"])
-    positions = torch.arange(x.shape[1], device=x.device)
+    x = L.embed_tokens(params.embed, batch["tokens"], ax)
+    s = x.shape[1]
+    x = constrain(x, T.res_spec(ax, s))
+    positions = torch.arange(s, device=x.device)
 
     def body(h, aux, lp):
         h = h + L.attention_train(L.norm(h, lp.ln1, cfg), lp.attn, cfg, ax, positions)
+        h = constrain(h, T.res_spec(ax, s))
         y, a = moe.moe_ffn(L.norm(h, lp.ln2, cfg), lp.ffn, cfg, ax)
-        return h + y, aux + a
+        return constrain(h + y, T.res_spec(ax, s)), aux + a
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
@@ -99,11 +117,13 @@ def _moe_decode(params, token, cache, pos, cfg, ax, plan):
 MOE = ModelApi(
     family="moe",
     init=_moe_init,
+    specs=_moe_specs,
     loss=_moe_loss,
     prefill=_moe_prefill,
     decode=_moe_decode,
     init_cache=T.init_cache,
     cache_shape=T.cache_shape,
+    cache_specs=T.cache_specs,
 )
 
 
@@ -117,11 +137,13 @@ def _ssm_prefill(params, batch, cfg, ax, cache_len):
 SSM = ModelApi(
     family="ssm",
     init=mamba.init_lm,
+    specs=mamba.lm_specs,
     loss=mamba.lm_loss,
     prefill=_ssm_prefill,
     decode=mamba.decode_step,
     init_cache=mamba.init_cache,
     cache_shape=mamba.cache_shape,
+    cache_specs=mamba.cache_specs,
 )
 
 
@@ -135,11 +157,13 @@ def _hybrid_prefill(params, batch, cfg, ax, cache_len):
 HYBRID = ModelApi(
     family="hybrid",
     init=rglru.init_lm,
+    specs=rglru.lm_specs,
     loss=rglru.lm_loss,
     prefill=_hybrid_prefill,
     decode=rglru.decode_step,
     init_cache=rglru.init_cache,
     cache_shape=rglru.cache_shape,
+    cache_specs=rglru.cache_specs,
 )
 
 
@@ -151,11 +175,13 @@ def _encdec_prefill(params, batch, cfg, ax, cache_len):
 ENCDEC = ModelApi(
     family="encdec",
     init=encdec.init_lm,
+    specs=encdec.lm_specs,
     loss=encdec.lm_loss,
     prefill=_encdec_prefill,
     decode=encdec.decode_step,
     init_cache=encdec.init_cache,
     cache_shape=encdec.cache_shape,
+    cache_specs=encdec.cache_specs,
 )
 
 _FAMILIES = {"dense": DENSE, "vlm": VLM, "moe": MOE, "ssm": SSM, "hybrid": HYBRID,

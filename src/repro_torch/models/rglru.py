@@ -52,8 +52,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models.layers import TensorSpec
 from repro_torch.models.mamba import _associative_scan, _causal_conv
-from repro_torch.models.shardings import SINGLE, MeshAxes, ServePlan
-from repro_torch.models.transformer import _on, chunked_xent
+from repro_torch.models import transformer as T
+from repro_torch.models.shardings import SINGLE, MeshAxes, P, ServePlan, constrain
+from repro_torch.models.transformer import _on, chunked_xent, res_spec
 
 _C = 8.0  # RG-LRU temperature
 
@@ -157,6 +158,78 @@ def init_lm(cfg: ArchConfig, seed: int | None = 0, *, device=None,
 
 
 # ---------------------------------------------------------------------------
+# sharding specs (trees of P in the reference's layout)
+# ---------------------------------------------------------------------------
+
+
+def rglru_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    tp_h = ax.tp_if(cfg.num_heads)
+    return {
+        "w_r": P(tp_h, None, None),
+        "w_i": P(tp_h, None, None),
+        "b_r": P(None),
+        "b_i": P(None),
+        "lam": P(None),
+    }
+
+
+def rec_block_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    tp = ax.tp_if(cfg.lru_width)
+    fs = ax.fsdp_if(cfg.d_model)
+    return {
+        "lin_x": {"w": P(fs, tp)},
+        "lin_y": {"w": P(fs, tp)},
+        "conv_w": P(None, tp),
+        "conv_b": P(tp),
+        "lru": rglru_specs(cfg, ax),
+        "lin_out": {"w": P(tp, fs)},
+    }
+
+
+def block_specs(cfg: ArchConfig, ax: MeshAxes, kind: str) -> dict:
+    mix = rec_block_specs(cfg, ax) if kind == "rec" else T.attn_specs(cfg, ax)
+    return {
+        "ln1": T.norm_specs(cfg),
+        "mix": mix,
+        "ln2": T.norm_specs(cfg),
+        "ffn": T.mlp_specs(cfg, ax),
+    }
+
+
+def group_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    return {f"b{i}": block_specs(cfg, ax, kind) for i, kind in enumerate(cfg.block_pattern)}
+
+
+def lm_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    _, tail = _group_layout(cfg)
+    return {
+        "embed": P(ax.tp_if(cfg.vocab_size), ax.fsdp_if(cfg.d_model)),
+        "groups": stack.stacked_specs(group_specs(cfg, ax)),
+        "tail": [block_specs(cfg, ax, kind) for kind in tail],
+        "ln_f": T.norm_specs(cfg),
+    }
+
+
+def _block_cache_specs(cfg: ArchConfig, ax: MeshAxes, kind: str, plan: ServePlan) -> dict:
+    b = plan.batch_axes or None
+    if kind == "rec":
+        tp = ax.tp_if(cfg.lru_width)
+        return {"conv": P(b, None, tp), "lru": P(b, tp)}
+    # window cache is small; shard batch only (window rarely divides tp)
+    return {"k": P(b, None, None, None), "v": P(b, None, None, None)}
+
+
+def cache_specs(cfg: ArchConfig, ax: MeshAxes, batch: int, plan: ServePlan) -> dict:
+    _, tail = _group_layout(cfg)
+    g = {f"b{i}": _block_cache_specs(cfg, ax, kind, plan)
+         for i, kind in enumerate(cfg.block_pattern)}
+    return {
+        "groups": stack.stacked_specs(g),
+        "tail": [_block_cache_specs(cfg, ax, kind, plan) for kind in tail],
+    }
+
+
+# ---------------------------------------------------------------------------
 # RG-LRU core
 # ---------------------------------------------------------------------------
 
@@ -213,6 +286,7 @@ def rec_mix(x, p: RecBlock, cfg: ArchConfig, ax: MeshAxes = SINGLE, state=None):
     Returns (out (B, S, d_model), the new state)."""
     xb = L.dense(x, p.lin_x.w)
     yb = L._gelu(L.dense(x, p.lin_y.w))
+    xb = constrain(xb, P(ax.dp, None, ax.tp_if(cfg.lru_width)))
     conv0 = state["conv"] if state else None
     xb, conv_state = _causal_conv(xb, p.conv_w, p.conv_b, conv0)
     if x.shape[1] == 1 and state is not None:
@@ -228,23 +302,25 @@ def rec_mix(x, p: RecBlock, cfg: ArchConfig, ax: MeshAxes = SINGLE, state=None):
 # ---------------------------------------------------------------------------
 
 
-def _embed(params: HybridLM, tokens, cfg: ArchConfig):
+def _embed(params: HybridLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE):
     """Token embeddings times the gemma scale sqrt(d_model), the scale
     rounded to the embedding's dtype first, as JAX rounds a weak python
     scalar (the product of two bf16 values is exact in the f32 that
     torch computes it in, then rounded once, as in JAX)."""
-    x = L.embed_tokens(params.embed, tokens)
+    x = L.embed_tokens(params.embed, tokens, ax)
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype).item()
 
 
 def apply_block(x, p: Block, kind: str, cfg: ArchConfig, ax: MeshAxes, positions):
+    s = x.shape[1]
     xn = L.norm(x, p.ln1, cfg)
     if kind == "rec":
         mix, _ = rec_mix(xn, p.mix, cfg, ax)
     else:
         mix = L.attention_train(xn, p.mix, cfg, ax, positions)
-    x = x + mix
-    return x + L.mlp(L.norm(x, p.ln2, cfg), p.ffn, cfg, ax)
+    x = constrain(x + mix, res_spec(ax, s))
+    x = x + L.mlp(L.norm(x, p.ln2, cfg), p.ffn, cfg, ax)
+    return constrain(x, res_spec(ax, s))
 
 
 def lm_loss(params: HybridLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGLE):
@@ -252,7 +328,8 @@ def lm_loss(params: HybridLM, batch: dict, cfg: ArchConfig, ax: MeshAxes = SINGL
     optional loss_mask): the scaled embedding, the groups with per-group
     remat, the tail without remat (as the reference), ``ln_f`` and
     ``chunked_xent`` against the tied embedding."""
-    x = _embed(params, batch["tokens"], cfg)
+    x = _embed(params, batch["tokens"], cfg, ax)
+    x = constrain(x, res_spec(ax, x.shape[1]))
     positions = torch.arange(x.shape[1], device=x.device)
     pat = cfg.block_pattern
 
@@ -328,7 +405,7 @@ def decode_step(params: HybridLM, token, cache: dict, pos, cfg: ArchConfig,
     left as it was."""
     plan = plan or ServePlan()
     pos = int(pos)
-    x = _embed(params, token, cfg)
+    x = _embed(params, token, cfg, ax)
     pat = cfg.block_pattern
 
     def group_body(h, gp, gc):
@@ -345,7 +422,7 @@ def decode_step(params: HybridLM, token, cache: dict, pos, cfg: ArchConfig,
         x, st = _decode_block(x, p, kind, cfg, ax, pos, tc, plan)
         tcache.append(st)
     x = L.norm(x, params.ln_f, cfg)
-    logits = L.unembed(x, params.embed, cfg.vocab_size)
+    logits = L.unembed(x, params.embed, cfg.vocab_size, ax)
     return logits[:, 0], {"groups": gcache, "tail": tcache}
 
 
@@ -357,8 +434,9 @@ def prefill(params: HybridLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
     prompt's trailing ``window`` positions in ring layout (slot = pos %
     window); a prompt shorter than the window leaves an s-slot cache, as
     the reference's does."""
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, ax)
     s = x.shape[1]
+    x = constrain(x, res_spec(ax, s))
     positions = torch.arange(s, device=x.device)
     w = _cache_window(cfg, cache_len)
     pat = cfg.block_pattern
@@ -391,5 +469,5 @@ def prefill(params: HybridLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
         x, st = prefill_block(x, p, kind)
         tcache.append(st)
     x = L.norm(x, params.ln_f, cfg)
-    logits = L.unembed(x[:, -1:], params.embed, cfg.vocab_size)
+    logits = L.unembed(x[:, -1:], params.embed, cfg.vocab_size, ax)
     return logits[:, 0], {"groups": gcache, "tail": tcache}

@@ -26,6 +26,13 @@ def stacked_init(init_fn: Callable[[], nn.Module], num: int) -> nn.ModuleList:
     return nn.ModuleList(init_fn() for _ in range(num))
 
 
+def stacked_specs(specs, prefix_dim=None):
+    """Prepend a (replicated) layer dim to every ``P`` leaf."""
+    from repro_torch.models.shardings import P
+
+    return tree_map(lambda s: P(prefix_dim, *s), specs)
+
+
 def remat(fn: Callable, *args):
     """``fn(*args)``, keeping only ``args`` for backward (the bodies are
     deterministic, so no RNG state is saved)."""

@@ -19,9 +19,10 @@ with ``ffn_apply`` (``L.mlp`` by default), as the reference's hooks of
 the same names; the moe loss runs its own fold (models/registry.py) to
 carry the aux, so the train forward takes no hook.
 Caches keep the reference's stacked layout ``{"k", "v"}: (L, B, T, KV,
-hd)`` in bf16 whatever the compute dtype. The reference's ``res_spec``
-and ``*_specs`` pin shardings on a mesh; on one card there is nothing to
-pin, and ``cache_specs`` waits for the mesh slice.
+hd)`` in bf16 whatever the compute dtype. The reference's ``res_spec``,
+``*_specs`` and ``cache_specs`` are here as trees of ``shardings.P``;
+``constrain`` pins the residual at the reference's sites, the identity
+unless the residual is a DTensor (a train step on a mesh).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import stack
-from repro_torch.models.shardings import SINGLE, MeshAxes, ServePlan
+from repro_torch.models.shardings import SINGLE, MeshAxes, P, ServePlan, constrain
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -89,14 +90,97 @@ def init_lm(cfg: ArchConfig, seed: int | None = 0, *, device=None,
 
 
 # ---------------------------------------------------------------------------
+# sharding specs (trees of P in the reference's stacked layout)
+# ---------------------------------------------------------------------------
+
+
+def norm_specs(cfg: ArchConfig) -> dict:
+    s = {"scale": P(None)}
+    if cfg.norm == "layernorm":
+        s["bias"] = P(None)
+    return s
+
+
+def dense_specs(d_in_spec, d_out_spec, bias: bool) -> dict:
+    s = {"w": P(d_in_spec, d_out_spec)}
+    if bias:
+        s["b"] = P(d_out_spec)
+    return s
+
+
+def attn_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    """Column-parallel qkv (out dim on tp), row-parallel out-proj, fsdp on
+    the other dim. KV projections replicate over tp when kv_dim % tp != 0."""
+    tp_q = ax.tp_if(cfg.q_dim)
+    tp_kv = ax.tp_if(cfg.kv_dim)
+    fs = ax.fsdp_if(cfg.d_model)
+    return {
+        "wq": dense_specs(fs, tp_q, cfg.qkv_bias),
+        "wk": dense_specs(fs, tp_kv, cfg.qkv_bias),
+        "wv": dense_specs(fs, tp_kv, cfg.qkv_bias),
+        "wo": dense_specs(tp_q, fs, False),
+    }
+
+
+def mlp_specs(cfg: ArchConfig, ax: MeshAxes, d_ff: int | None = None) -> dict:
+    d_ff = d_ff or cfg.d_ff
+    tp_f = ax.tp_if(d_ff)
+    fs = ax.fsdp_if(cfg.d_model)
+    if cfg.act == "gelu":
+        return {
+            "wi": dense_specs(fs, tp_f, True),
+            "wd": dense_specs(tp_f, fs, True),
+        }
+    return {
+        "wg": dense_specs(fs, tp_f, False),
+        "wu": dense_specs(fs, tp_f, False),
+        "wd": dense_specs(tp_f, fs, False),
+    }
+
+
+def decoder_layer_specs(cfg: ArchConfig, ax: MeshAxes, ffn_specs=None) -> dict:
+    return {
+        "ln1": norm_specs(cfg),
+        "attn": attn_specs(cfg, ax),
+        "ln2": norm_specs(cfg),
+        "ffn": (ffn_specs or mlp_specs)(cfg, ax),
+    }
+
+
+def embed_specs(cfg: ArchConfig, ax: MeshAxes) -> P:
+    return P(ax.tp_if(cfg.vocab_size), ax.fsdp_if(cfg.d_model))
+
+
+def lm_specs(cfg: ArchConfig, ax: MeshAxes) -> dict:
+    specs = {
+        "embed": embed_specs(cfg, ax),
+        "layers": stack.stacked_specs(decoder_layer_specs(cfg, ax)),
+        "ln_f": norm_specs(cfg),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = P(ax.fsdp_if(cfg.d_model), ax.tp_if(cfg.vocab_size))
+    return specs
+
+
+def res_spec(ax: MeshAxes, s: int) -> P:
+    """Residual-stream spec: batch on dp, sequence on tp (Megatron-SP)
+    whenever the sequence divides the tp axis."""
+    seq = ax.tp if (ax.tp and s % ax.tp_size == 0 and s > 1) else None
+    return P(ax.dp, seq, None)
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 
 def apply_decoder_layer(x, p: DecoderLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE,
                         positions=None):
+    s = x.shape[1]
     x = x + L.attention_train(L.norm(x, p.ln1, cfg), p.attn, cfg, ax, positions)
-    return x + L.mlp(L.norm(x, p.ln2, cfg), p.ffn, cfg, ax)
+    x = constrain(x, res_spec(ax, s))
+    x = x + L.mlp(L.norm(x, p.ln2, cfg), p.ffn, cfg, ax)
+    return constrain(x, res_spec(ax, s))
 
 
 def _on(t, device) -> torch.Tensor:
@@ -105,18 +189,19 @@ def _on(t, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _embed_with_prefix(params: TransformerLM, tokens, prefix_embed):
-    """Token embeddings after the stub prefix (cast to their dtype)."""
-    x = L.embed_tokens(params.embed, tokens)
+def _embed_with_prefix(params: TransformerLM, tokens, prefix_embed, ax: MeshAxes = SINGLE):
+    """Token embeddings after the stub prefix (cast to their dtype), the
+    residual constrained to ``res_spec``."""
+    x = L.embed_tokens(params.embed, tokens, ax)
     if prefix_embed is not None:
         x = torch.cat([_on(prefix_embed, x.device).to(x.dtype), x], dim=1)
-    return x
+    return constrain(x, res_spec(ax, x.shape[1]))
 
 
 def lm_hidden(params: TransformerLM, cfg: ArchConfig, ax: MeshAxes, tokens,
               prefix_embed=None):
     """Token (+ optional stub prefix) embeddings -> final hidden states."""
-    x = _embed_with_prefix(params, tokens, prefix_embed)
+    x = _embed_with_prefix(params, tokens, prefix_embed, ax)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(h, lp):
@@ -130,11 +215,13 @@ def unembed_weight(params: TransformerLM, cfg: ArchConfig) -> torch.Tensor:
     return params.embed if cfg.tie_embeddings else params.head
 
 
-def _xent_chunk(xc, w, lc, mc, vocab: int):
+def _xent_chunk(xc, w, lc, mc, vocab: int, ax: MeshAxes = SINGLE):
     """One chunk's (sum of masked token losses, mask count), f32."""
-    logits = L.unembed(xc, w, vocab).to(torch.float32)
+    logits = L.unembed(xc, w, vocab, ax).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    # the label's logit from vocab-gathered logits: DTensor's gather on a
+    # vocab-sharded operand (a masked partial) fails to reduce
+    ll = torch.gather(constrain(logits, P(ax.dp, None, None)), -1, lc[..., None].long())[..., 0]
     return torch.sum((lse - ll) * mc), torch.sum(mc)
 
 
@@ -146,6 +233,7 @@ def chunked_xent(x, w, labels, cfg: ArchConfig, ax: MeshAxes = SINGLE, loss_mask
     (d, V) head; labels (B, S) ints on x's device."""
     b, s, _ = x.shape
     chunk = L.fit_chunk(s, chunk)
+    x = constrain(x, P(ax.dp, None, None))  # the chunks slice the sequence: gather it
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, chunk):
@@ -154,7 +242,7 @@ def chunked_xent(x, w, labels, cfg: ArchConfig, ax: MeshAxes = SINGLE, loss_mask
             mc = torch.ones((b, chunk), dtype=torch.float32, device=x.device)
         else:
             mc = loss_mask[:, sl].to(torch.float32)
-        t, n = checkpoint(_xent_chunk, x[:, sl], w, labels[:, sl], mc, cfg.vocab_size,
+        t, n = checkpoint(_xent_chunk, x[:, sl], w, labels[:, sl], mc, cfg.vocab_size, ax,
                           use_reentrant=False, preserve_rng_state=False)
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp(cnt, min=1.0)
@@ -191,6 +279,13 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype=torch.bfloat16
             for k, spec in cache_shape(cfg, batch, cache_len, dtype).items()}
 
 
+def cache_specs(cfg: ArchConfig, ax: MeshAxes, batch: int, plan: ServePlan) -> dict:
+    spec = P(plan.batch_axes, plan.seq_axes if plan.seq_axes else None,
+             plan.kv_axes if plan.kv_axes else None, None)
+    spec = P(None, *spec)  # layer dim
+    return {"k": spec, "v": spec}
+
+
 @torch.inference_mode()
 def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             cache_len: int = 0, prefix_embed=None, ffn_apply=None):
@@ -198,7 +293,7 @@ def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGL
     (last-position logits (B, V), cache): the cache holds the S
     positions' rotated k and v in bf16, zero-padded to ``cache_len``
     when that is longer (else it keeps length S)."""
-    x = _embed_with_prefix(params, tokens, prefix_embed)
+    x = _embed_with_prefix(params, tokens, prefix_embed, ax)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
     shape = (cfg.num_layers, b, max(cache_len, s), cfg.num_kv_heads, cfg.head_dim)
@@ -207,12 +302,13 @@ def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGL
         xn = L.norm(x, lp.ln1, cfg)
         q, k, v = L.qkv_proj(xn, lp.attn, cfg, ax, positions)
         o = L.attention_core_train(q, L.expand_kv(k, cfg), L.expand_kv(v, cfg), cfg, ax)
-        x = x + L.dense(o, lp.attn.wo.w)
+        x = constrain(x + L.dense(o, lp.attn.wo.w), res_spec(ax, s))
         x = x + (ffn_apply or L.mlp)(L.norm(x, lp.ln2, cfg), lp.ffn, cfg, ax)
+        x = constrain(x, res_spec(ax, s))
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = L.norm(x, params.ln_f, cfg)
-    logits = L.unembed(x[:, -1:], unembed_weight(params, cfg), cfg.vocab_size)
+    logits = L.unembed(x[:, -1:], unembed_weight(params, cfg), cfg.vocab_size, ax)
     return logits[:, 0], cache
 
 
@@ -224,7 +320,7 @@ def decode_step(params: TransformerLM, token, cache: dict, pos, cfg: ArchConfig,
     (logits (B, V), the new cache); ``cache`` is left as it was."""
     plan = plan or ServePlan()
     pos = int(pos)
-    x = L.embed_tokens(params.embed, token)
+    x = L.embed_tokens(params.embed, token, ax)
 
     def body(h, lp, lc):
         o, nk, nv = L.attention_decode_general(L.norm(h, lp.ln1, cfg), lc["k"], lc["v"],
@@ -235,5 +331,5 @@ def decode_step(params: TransformerLM, token, cache: dict, pos, cfg: ArchConfig,
 
     x, new_cache = stack.scan_layers_with_cache(body, x, params.layers, cache)
     x = L.norm(x, params.ln_f, cfg)
-    logits = L.unembed(x, unembed_weight(params, cfg), cfg.vocab_size)
+    logits = L.unembed(x, unembed_weight(params, cfg), cfg.vocab_size, ax)
     return logits[:, 0], new_cache

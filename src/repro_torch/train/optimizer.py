@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import torch
 from torch.nn import functional as F
 
+from repro_torch.models.shardings import P, is_dtensor
 from repro_torch.models.stack import tree_leaves, tree_map
 
 
@@ -102,19 +103,44 @@ def init_opt_state(params: dict, c: OptConfig) -> dict:
     return {"m": m, "v": v, "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_state_shape(params: dict, c: OptConfig) -> dict:
+    """``init_opt_state`` on ``meta`` tensors: the state's shapes and
+    dtypes with no allocation. ``params`` a stacked tree of tensors (or
+    anything with ``.shape``)."""
+    meta = tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), params)
+    return init_opt_state(meta, c)
+
+
+def opt_specs(param_specs: dict, c: OptConfig) -> dict:
+    """Optimizer-state specs mirroring the param specs; the quantized v
+    leaves (blocks, block) / (blocks, 1) replicate, as in the reference."""
+    m = tree_map(lambda s: s, param_specs)
+    if c.quantize_v:
+        v = tree_map(lambda s: (P(None, None), P(None, None)), param_specs)
+    else:
+        v = tree_map(lambda s: s, param_specs)
+    return {"m": m, "v": v, "count": P()}
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of squares over every leaf, f32. On DTensor leaves
+    the sums are DTensor reductions (a replicated leaf counted once) and
+    the result is the global value on every rank, as a plain tensor."""
+    gn = torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
+                        for x in tree_leaves(tree)))
+    return gn.full_tensor() if is_dtensor(gn) else gn
 
 
 def _step_scalars(grads: dict, state: dict, c: OptConfig):
-    """(count, grad norm, clip scale, lr, bias corrections 1 and 2)."""
+    """(count, grad norm, clip scale, lr, bias corrections 1 and 2); on a
+    mesh ``count`` is a replicated DTensor and the rest plain tensors."""
     count = state["count"] + 1
     gn = global_norm(grads)
+    local = count.to_local() if is_dtensor(count) else count
     scale = torch.clamp(c.clip_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    bc1 = 1 - c.b1 ** count.to(torch.float32)
-    bc2 = 1 - c.b2 ** count.to(torch.float32)
-    return count, gn, scale, schedule(c, count), bc1, bc2
+    bc1 = 1 - c.b1 ** local.to(torch.float32)
+    bc2 = 1 - c.b2 ** local.to(torch.float32)
+    return count, gn, scale, schedule(c, local), bc1, bc2
 
 
 def _adamw(p, g, m, vf, decays: bool, c: OptConfig, scale, lr, bc1, bc2):
@@ -160,6 +186,13 @@ def adamw_update_(grads: dict, state: dict, params: dict, c: OptConfig):
     chunk = max(c.qblock, CHUNK // c.qblock * c.qblock)
 
     def upd(p, g, m, v):
+        if is_dtensor(p):  # elementwise: each rank updates its own shard
+            if c.quantize_v:
+                raise NotImplementedError(
+                    "the int8 second moment on a mesh (ROADMAP queue 1)")
+            if tuple(g.placements) != tuple(p.placements):
+                g = g.redistribute(p.device_mesh, p.placements)
+            p, g, m, v = (t.to_local() for t in (p, g, m, v))
         pf, gf, mf = p.view(-1), g.reshape(-1), m.view(-1)
         for i in range(0, pf.numel(), chunk):
             sl = slice(i, i + chunk)

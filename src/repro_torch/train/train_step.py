@@ -13,8 +13,11 @@ state is donated, as the reference's jitted step donates it. The
 (``optimizer.adamw_update_``), so the state passed in is the state
 returned; the per-layer gradients are freed once stacked.
 
-The reference's ``state_shape`` and ``state_specs`` (AOT lowering and
-the state's mesh sharding) wait for the mesh slice.
+On a mesh (``train.loop.Trainer(mesh=...)``) the parameters, the
+optimizer state and the batch are DTensors laid out by ``state_specs``
+and ``data.pipeline.batch_specs``; the same step runs on them, the loss
+comes back as the global value on every rank. ``state_shape`` is the
+state on ``meta`` tensors (shapes and dtypes, no allocation).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import convert
 from repro_torch.models.registry import ModelApi
-from repro_torch.models.shardings import MeshAxes
+from repro_torch.models.shardings import MeshAxes, P, is_dtensor
 from repro_torch.train import optimizer as opt
 
 
@@ -58,6 +61,20 @@ def init_state(cfg: ArchConfig, api: ModelApi, seed: int, oc: opt.OptConfig, *,
     return TrainState(params, opt_state, torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def state_shape(cfg: ArchConfig, api: ModelApi, oc: opt.OptConfig) -> TrainState:
+    """The TrainState on ``meta`` tensors: params (the model, uninitialised
+    on ``meta``), the stacked optimizer state and the step, with no
+    allocation."""
+    params = api.init(cfg, None, device="meta")
+    return TrainState(params, opt.opt_state_shape(convert.stacked_tree(params), oc),
+                      torch.zeros((), dtype=torch.int32, device="meta"))
+
+
+def state_specs(cfg: ArchConfig, api: ModelApi, ax: MeshAxes, oc: opt.OptConfig) -> TrainState:
+    pspecs = api.specs(cfg, ax)
+    return TrainState(pspecs, opt.opt_specs(pspecs, oc), P())
+
+
 def _split_microbatch(batch: dict, m: int, i: int) -> dict:
     def sl(x):
         mb = x.shape[0] // m
@@ -80,14 +97,15 @@ def make_train_step(cfg: ArchConfig, api: ModelApi, ax: MeshAxes, oc: opt.OptCon
 
     def vg(params, batch):
         loss = loss_fn(params, batch)
-        return loss.detach(), torch.autograd.grad(loss, list(params.parameters()))
+        grads = torch.autograd.grad(loss, list(params.parameters()))
+        loss = loss.detach()
+        return (loss.full_tensor() if is_dtensor(loss) else loss), grads
 
     def grads_of(params, batch):
         if m <= 1:
             return vg(params, batch)
         lsum = torch.zeros((), dtype=torch.float32, device=params.device)
-        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in params.parameters()]
+        acc = [torch.zeros_like(p, dtype=torch.float32) for p in params.parameters()]
         for i in range(m):
             loss, grads = vg(params, _split_microbatch(batch, m, i))
             lsum = lsum + loss

@@ -58,6 +58,10 @@ def test_every_module_imports_without_jax_or_repro():
         slice_9 = {"repro_torch.models.moe", "repro_torch.configs.olmoe_1b_7b",
                    "repro_torch.configs.granite_moe_3b_a800m"}
         assert slice_9 <= set(names), slice_9 - set(names)
+        slice_12 = {"repro_torch.analysis", "repro_torch.analysis.hlo_cost",
+                    "repro_torch.analysis.roofline", "repro_torch.launch.mesh",
+                    "repro_torch.core.distributed"}
+        assert slice_12 <= set(names), slice_12 - set(names)
         print(len(names))
         """
     )
@@ -92,7 +96,7 @@ def _entry_points():
     from repro_torch.storage.repair import BlockFixer
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticPipeline
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import mesh, serve, train
     from repro_torch.models import mamba, transformer
     from repro_torch.models.registry import get_model
     from repro_torch.train import optimizer, train_step
@@ -145,6 +149,8 @@ def _entry_points():
         "launch_serve_hybrid": lambda: serve.main(["--arch", "recurrentgemma_9b", "--reduced"]),
         "launch_train_encdec": lambda: train.main(["--arch", "seamless_m4t_large_v2",
                                                    "--reduced", "--steps", "1"]),
+        "host_mesh": lambda: mesh.make_host_mesh(1, 1),
+        "init_ranks": lambda: mesh.init_ranks(0, 1, "file:///nonexistent/rendezvous"),
     }
 
 
@@ -155,7 +161,7 @@ def _entry_points():
              "dense_prefill", "launch_serve_dense", "moe_init",
              "launch_serve_moe", "trainer_dense", "launch_train_moe", "hybrid_init",
              "hybrid_init_cache", "encdec_init", "encdec_init_cache", "launch_serve_hybrid",
-             "launch_train_encdec"]
+             "launch_train_encdec", "host_mesh", "init_ranks"]
 )
 def test_default_device_raises_without_cuda(name, monkeypatch):
     """No silent CPU fallback: the default device is the card."""
@@ -177,6 +183,83 @@ def test_training_a_dense_arch_waits_for_its_slice(arch):
         cfg = get_config(name).reduced()
         tr = Trainer(cfg, LoopConfig(), device="cpu")
         assert tr.api is get_model(cfg) and tr.dev == torch.device("cpu")
+
+
+def test_no_private_torch_distributed_imports():
+    """The port keeps to the public DTensor / DeviceMesh API, which the
+    card's torch and this host's both have: no ``torch.distributed._*``."""
+    pattern = re.compile(r"torch\.distributed\._\w+|from torch\.distributed import _\w+")
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in files
+            for m in pattern.finditer(p.read_text())]
+    assert not hits, hits
+
+
+_DTENSOR_TO_WRAPPERS = """
+import os, sys, tempfile
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import Replicate, distribute_tensor
+from repro_torch.launch.mesh import init_ranks, make_mesh
+import importlib
+# the package __init__ re-exports the functions under the modules' names
+gf, rd, re_, ss, xp = (importlib.import_module("repro_torch.kernels." + m) for m in (
+    "gf256_matmul", "ragged_decode", "ragged_encode", "selective_scan", "xor_parity"))
+
+with tempfile.TemporaryDirectory() as tmp:
+    init_ranks(0, 1, "file://" + os.path.join(tmp, "rdv"), "cpu", 60)
+    mesh = make_mesh((1,), ("data",), device="cpu")
+    d = lambda t: distribute_tensor(t, mesh, [Replicate()])
+    u8 = lambda *shape: torch.zeros(shape, dtype=torch.uint8)
+    tiles, mc, planes, data = u8(2, 3, 16), u8(2, 3, 8), u8(2, 3, 8), u8(3, 64)
+    f = torch.zeros((1, 2, 4, 4))
+    calls = {
+        "K1": lambda: rd.ragged_gf256_tiles(d(mc), tiles),
+        "K2": lambda: rd.ragged_xor_tiles(d(tiles)),
+        "K3": lambda: re_.ragged_gf256_encode_tiles(mc, d(tiles)),
+        "K4": lambda: re_.ragged_xor_encode_tiles(d(tiles)),
+        "K5": lambda: gf.gf256_matmul_planes(d(planes), data, block_n=64),
+        "K6": lambda: gf.gf256_matmul_planes_batched(planes[None], d(data[None]), block_n=64),
+        "K7": lambda: xp.xor_parity(d(data), block_n=64),
+        "K7b": lambda: xp.xor_parity_batched(d(data[None]), block_n=64),
+        "K8": lambda: ss.selective_scan(d(f), f, torch.zeros((1, 2, 4))),
+        "K8 h0": lambda: ss.selective_scan(f, f, torch.zeros((1, 2, 4)), h0=d(f[:, 0])),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except TypeError as e:
+            assert "DTensor" in str(e), (name, e)
+        else:
+            raise AssertionError(name + " took a DTensor")
+    print("REFUSED", len(calls))
+    dist.destroy_process_group()
+"""
+
+
+def test_kernel_wrappers_refuse_a_dtensor():
+    """K1-K8 read raw pointers: a DTensor (one rank's shard) would be
+    taken silently, so each wrapper raises TypeError; the call site
+    unwraps shards through ``local_map``. One gloo rank in a subprocess."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DTENSOR_TO_WRAPPERS], capture_output=True, text=True,
+        cwd=ROOT, timeout=120,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1"},
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "REFUSED 10"
+
+
+def test_mesh_launcher_wants_a_card_per_rank(monkeypatch):
+    """NCCL takes one rank per card: two ranks on the card with one card
+    raise ValueError before any rank is spawned."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="one rank per"):
+        train.main(["--arch", "falcon_mamba_7b", "--reduced", "--devices", "2",
+                    "--mesh", "1x2"])
 
 
 def test_cpu_is_taken_only_when_asked():

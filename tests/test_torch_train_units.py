@@ -63,11 +63,17 @@ def test_launcher_trains_on_the_cpu(arch):
     assert sum("ckpt @" in line for line in lines) == 2
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "2x2"], ["--devices", "4"]])
-def test_launcher_mesh_waits_for_its_slice(flags):
+@pytest.mark.parametrize("flags,error", [
+    (["--mesh", "2x2", "--devices", "3"], ValueError),
+    (["--mesh", "2x2", "--quantize-v"], NotImplementedError),
+])
+def test_launcher_mesh_waits_for_its_slice(flags, error):
+    """Its slice has come (tests/test_torch_launch_integration.py trains
+    on a 2 x 2 mesh); what the launcher refuses before it spawns a rank:
+    a rank count other than the mesh's size, and the int8 second moment."""
     from repro_torch.launch import train
 
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    with pytest.raises(error):
         train.main(["--arch", "falcon_mamba_7b", "--reduced", "--device", "cpu", *flags])
 
 

@@ -181,10 +181,13 @@ def test_attention_decode_general(pos, window):
 
 
 def test_sequence_sharded_decode_waits_for_the_mesh_slice():
+    """Its slice has come (tests/test_torch_mesh_train.py holds it on 4
+    ranks against the reference); a sequence-sharded plan takes the
+    caches as DTensors on their mesh, and refuses plain tensors."""
     cfg, cfg_j = _cfgs("qwen2_72b")
     layer, _ = _layer0(cfg, cfg_j)
     cache = torch.zeros(1, 8, cfg.num_kv_heads, cfg.head_dim)
-    with pytest.raises(NotImplementedError, match="mesh slice"):
+    with pytest.raises(TypeError, match="DTensors"):
         L.attention_decode_general(torch.zeros(1, 1, cfg.d_model), cache, cache, layer.attn,
                                    cfg, SINGLE, 0, ServePlan(seq_axes=("model",)))
 

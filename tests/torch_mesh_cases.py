@@ -1,0 +1,257 @@
+"""Shared by tests/test_torch_mesh_train.py and
+tests/test_torch_mesh_families.py: 4 gloo rank processes on a 2 x 2 mesh
+(CPU), spawned once per test file, which run only the port (and numpy)
+and write their measurements for the tests to hold.
+
+``run_ranks`` converts the JAX package's ``init_lm`` weights of each
+asked id (f32) and, when asked, the reference's unsharded decode on the
+``DECODE_CASES``; the ranks then run, per id, one f32 train step on the
+mesh against the port's single-device step, the CORE save/restore of a
+``Trainer(mesh=...)`` and the sequence-sharded decode."""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.configs import get_config as jax_get_config
+from repro.models import layers as JL
+from repro.models.registry import get_model as jax_get_model
+from repro.models.shardings import SINGLE as JSINGLE
+from repro.models.shardings import ServePlan as JServePlan
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# (sliding_window, batch, plan, pos): T = 128 slots; pos 150 has wrapped the ring
+DECODE_CASES = [(w, b, plan, pos) for w in (None, 64) for b, plan in ((1, "both"), (2, "model"))
+                for pos in (40, 150)]
+CACHE_LEN = 128
+
+
+def layers_of(arch: str) -> int:
+    """2 layers; the hybrid's 3 are one (rec, rec, attn) group."""
+    return 3 if jax_get_config(arch).family == "hybrid" else 2
+
+
+SCRIPT = r"""
+import json, os, pickle, sys, tempfile
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def train_case(arch, layers, tree, mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import convert
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    cfg = get_config(arch).reduced(num_layers=layers)
+    api = get_model(cfg)
+    oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    batch = SyntheticPipeline(cfg, 32, 4, 0).device_batch(0, "cpu")
+
+    def state():
+        model = convert.from_jax(tree, cfg, device="cpu", dtype=torch.float32, trainable=True)
+        return ts.TrainState(model, opt.init_opt_state(convert.stacked_tree(model), oc),
+                             torch.zeros((), dtype=torch.int32))
+
+    ref = state()
+    ref_loss = api.loss(ref.params, batch, cfg, SINGLE)
+    ref_grads = torch.autograd.grad(ref_loss, list(ref.params.parameters()))
+    ref_new, ref_m = ts.make_train_step(cfg, api, SINGLE, oc)(ref, batch)
+    ref_params = [p.detach() for p in ref_new.params.parameters()]
+
+    tr = Trainer(cfg, LoopConfig(seq_len=32, global_batch=4), oc, mesh=mesh, device="cpu")
+    sh = tr.place_state(state())
+    db = tr.pipeline.device_batch(0, "cpu", mesh, tr.ax)
+    with mesh_context(mesh):
+        loss = api.loss(sh.params, db, cfg, tr.ax)
+        grads = torch.autograd.grad(loss, list(sh.params.parameters()))
+        new, m = tr.step_fn(sh, db)
+    # the port's AdamW on this run's own (gathered) gradients, from the
+    # same initial state: AdamW's first step divides g by |g| + eps, so a
+    # gradient near eps turns a 1e-6 relative difference into up to lr
+    init = state()
+    own, _, _ = opt.adamw_update(
+        convert.stacked_tree(init.params, [g.full_tensor() for g in grads]), init.opt,
+        convert.stacked_tree(init.params), oc)
+    got = convert.stacked_tree(new.params)
+    from repro_torch.models.stack import tree_leaves
+    new_params = [p.full_tensor() for p in new.params.parameters()]
+    return {
+        "own_adamw_abs": max(float((a.full_tensor() - b).abs().max())
+                             for a, b in zip(tree_leaves(got), tree_leaves(own))),
+        "param_abs_large_g": max(float(((p - r).abs() * (g.abs() >= 1e-6)).max())
+                                 for p, r, g in zip(new_params, ref_params, ref_grads)),
+        "loss": float(loss.full_tensor()), "ref_loss": float(ref_loss),
+        "step_loss": float(m["loss"]), "ref_step_loss": float(ref_m["loss"]),
+        "grad_rel": max(rel(g.full_tensor(), r) for g, r in zip(grads, ref_grads)),
+        "param_abs": max(float((p - r).abs().max()) for p, r in zip(new_params, ref_params)),
+        "lr": oc.lr,
+        "grad_norm_rel": abs(float(m["grad_norm"]) / float(ref_m["grad_norm"]) - 1),
+        "sharded": sum(any(type(pl).__name__ == "Shard" for pl in p.placements)
+                       for p in new.params.parameters()),
+        "leaves": len(ref_params),
+    }
+
+
+def ckpt_case(mesh, rank):
+    from repro_torch.configs import get_config
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, Trainer, _gathered
+    from repro_torch.models import convert
+    from repro_torch.models.stack import tree_leaves
+
+    cfg = get_config("qwen2_72b").reduced(num_layers=2)
+    oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    lc = LoopConfig(steps=2, ckpt_every=2, log_every=100, seq_len=32, global_batch=4)
+    tr = Trainer(cfg, lc, oc, mesh=mesh, device="cpu")
+    state = tr.run()
+
+    def flat(st):
+        leaves = tree_leaves(convert.stacked_tree(st.params)) + tree_leaves(st.opt)
+        return [_gathered(x) for x in leaves] + [_gathered(st.step)]
+
+    before = flat(state)
+    if rank == 0:
+        tr.store.fail_nodes([0, 1])
+    restored = tr.restore_latest()
+    after = flat(restored)
+    equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(before, after))
+    resumed = tr.run(state=restored, until=3)
+    return {"equal": equal and len(before) == len(after), "leaves": len(before),
+            "restored_step": int(_gathered(restored.step)),
+            "resumed_step": int(_gathered(resumed.step)),
+            "losses": [r["loss"] for r in tr.metrics_log]}
+
+
+def decode_case(case, mesh):
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import shardings as S
+
+    cfg = get_config("qwen2_72b").reduced(sliding_window=case["window"])
+    attn = L.init_attn(None, cfg, torch.float32, "cpu")
+    for name, arr in case["params"].items():
+        mod, _, leaf = name.rpartition(".")
+        getattr(attn.get_submodule(mod), leaf).data.copy_(torch.from_numpy(arr))
+    plan = (S.ServePlan(seq_axes=("data", "model")) if case["plan"] == "both"
+            else S.ServePlan(batch_axes=("data",), seq_axes=("model",)))
+    spec = S.P(plan.batch_axes, plan.seq_axes, None, None)
+    ck, cv = (S.distribute(torch.from_numpy(case[k]), spec, mesh) for k in ("ck", "cv"))
+    o, nk, nv = L.attention_decode_general(torch.from_numpy(case["x1"]), ck, cv, attn, cfg,
+                                           S.SINGLE, case["pos"], plan)
+    got = {"o": o, "k": nk.full_tensor(), "v": nv.full_tensor()}
+    return {k: float((got[k] - torch.from_numpy(case["want_" + k])).abs().max())
+            for k in got} | {"scale": float(np.abs(case["want_o"]).max()),
+                             "local_slots": int(nk.to_local().shape[1])}
+
+
+def run(rank, world, rdv, inputs, out):
+    torch.set_num_threads(1)
+    from repro_torch.launch.mesh import init_ranks, make_mesh
+
+    init_ranks(rank, world, rdv, "cpu", timeout_s=120)
+    try:
+        with open(inputs, "rb") as f:
+            data = pickle.load(f)
+        mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+        res = {"train": {a: train_case(a, n, tree, mesh)
+                         for a, (n, tree) in data["trees"].items()},
+               "ckpt": ckpt_case(mesh, rank) if data["ckpt"] else None,
+               "decode": [decode_case(c, mesh) for c in data["decode"]]}
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(run, args=(4, "file://" + os.path.join(tmp, "rdv"), sys.argv[1], sys.argv[2]),
+                 nprocs=4)
+"""
+
+
+def _np(tree):
+    return jax.tree.map(lambda a: np.asarray(a, np.float32), tree)
+
+
+def _decode_inputs():
+    out = []
+    for i, (window, b, plan, pos) in enumerate(DECODE_CASES):
+        cfg = jax_get_config("qwen2_72b").reduced(sliding_window=window)
+        params = JL.init_attn(jax.random.PRNGKey(7 + i), cfg, jnp.float32)
+        params = {f"{k}.{leaf}": np.asarray(v, np.float32)
+                  for k, d in params.items() for leaf, v in d.items()}
+        rng = np.random.default_rng(i)
+        x1 = rng.standard_normal((b, 1, cfg.d_model), np.float32)
+        shape = (b, CACHE_LEN, cfg.num_kv_heads, cfg.head_dim)
+        ck = rng.standard_normal(shape, np.float32)
+        cv = rng.standard_normal(shape, np.float32)
+        jp = {k: {leaf: jnp.asarray(v) for leaf, v in
+                  ((n.split(".")[1], a) for n, a in params.items() if n.startswith(k + "."))}
+              for k in ("wq", "wk", "wv", "wo")}
+        o, nk, nv = JL.attention_decode_general(jnp.asarray(x1), jnp.asarray(ck), jnp.asarray(cv),
+                                                jp, cfg, JSINGLE, pos, JServePlan())
+        out.append({"window": window, "plan": plan, "pos": pos, "params": params, "x1": x1,
+                    "ck": ck, "cv": cv, "want_o": np.asarray(o), "want_k": np.asarray(nk),
+                    "want_v": np.asarray(nv)})
+    return out
+
+
+def hold_train_step(r: dict) -> None:
+    """The tolerances of the sharded train step: the loss within 1e-5
+    relative, every gradient leaf within 1e-4 of its max |ref|, the new
+    parameters within 1e-5 of AdamW on the sharded run's own gradients
+    and of the single-device step wherever |g| >= 1e-6 (AdamW's first
+    step is g / (|g| + 1e-8): near eps it turns the gradients' 1e-6
+    relative difference into up to lr), and the state really sharded."""
+    assert abs(r["loss"] / r["ref_loss"] - 1) < 1e-5, r
+    assert abs(r["step_loss"] / r["ref_step_loss"] - 1) < 1e-5, r
+    assert r["grad_rel"] < 1e-4, r
+    assert r["grad_norm_rel"] < 1e-5, r
+    assert r["own_adamw_abs"] < 1e-5, r
+    assert r["param_abs_large_g"] < 1e-5, r
+    assert r["param_abs"] < r["lr"], r
+    assert r["sharded"] > r["leaves"] // 2, r
+
+
+def run_ranks(tmp: pathlib.Path, archs=(), ckpt: bool = False, decode: bool = False) -> dict:
+    """Spawn the 4 ranks on ``archs``' train steps (and the checkpoint and
+    decode cases when asked); returns their measurements."""
+    trees = {}
+    for arch in archs:
+        cfg = jax_get_config(arch).reduced(num_layers=layers_of(arch))
+        trees[arch] = (layers_of(arch), _np(jax_get_model(cfg).init(cfg, jax.random.PRNGKey(0))))
+    inputs, out, script = tmp / "inputs.pkl", tmp / "results.json", tmp / "mesh_ranks.py"
+    with open(inputs, "wb") as f:
+        pickle.dump({"trees": trees, "ckpt": ckpt,
+                     "decode": _decode_inputs() if decode else []}, f)
+    script.write_text(SCRIPT)
+    r = subprocess.run(
+        [sys.executable, str(script), str(inputs), str(out)],
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"},
+        cwd=ROOT, timeout=300, capture_output=True, text=True,
+    )
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-8000:]
+    return json.loads(out.read_text())

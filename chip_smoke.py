@@ -182,8 +182,26 @@ Phases, in order; any failure raises and exits non-zero:
    unsharded ``Trainer``'s steps from the same seed (bit-equal, else
    within 1e-5), one more step profiled; (b) the sequence-sharded
    decode (the flash combine) against the unsharded branch on the card
-   over 8 cases, within 1e-5. Then the process group is destroyed. No
-   kernel launched.
+   over 8 cases, within 1e-5; (c) serving on the mesh: falcon-mamba-7b
+   (K8 launched on each rank's shard through ``local_map``) and
+   olmoe-1b-7b (the moe dispatch per batch shard) at full width, cut to
+   2 layers, f32, the prefill of 1 x 128 tokens (K8 at the kernels
+   line's (1, 128, 8192, 16)) and two greedy decodes against the same
+   model unsharded (logits within 1e-5 of max |ref|), and olmoe's loss and
+   gradients on the mesh (1e-5 relative, 1e-4 of each leaf's max). Then
+   the process group is destroyed.
+13. the dry run (``repro_torch.launch.dryrun``), each cell a process of
+   its own, all started together: (a) on a fake world of 256 ranks, a
+   32 x 8 mesh (32 nodes of 8 NVLink-joined cards), falcon-mamba-7b's
+   train_4k (cut to 16 of its 64 layers), prefill_32k and decode_32k,
+   olmoe-1b-7b's train_4k and starcoder2-15b's decode_32k, each record
+   logged (strategy, per-rank memory against the budget, the three H100
+   roofline terms); (b) at a world of 1 (no mesh), the cells phases
+   8(b) and 6(c) run, while the card runs the same two steps: the
+   argument bytes equal to the real ones, the predicted peak within 20%
+   of ``max_memory_allocated``; then the per-rank memory budget the card
+   gives (``total_memory`` less what lies outside the allocator and the
+   allocator's headroom).
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
 check, no result line). ``--scan-only`` builds, prints ptxas's register
@@ -198,7 +216,7 @@ stops (no result line).
 ``--dense-only`` the same for phase 9, ``--moe-only`` for phase 10;
 ``--hybrid-only`` builds and runs phase 11(a) and 11(b) for the hybrid
 id, ``--encdec-only`` phase 11(a) and 11(c) for the encdec id;
-``--mesh-only`` builds and runs phase 12. The
+``--mesh-only`` builds and runs phase 12; ``--dryrun-only`` phase 13. The
 script imports ``repro_torch`` from the ``src/`` beside it, so a copy of
 it placed in another checkout times that checkout's kernels.
 
@@ -206,7 +224,8 @@ The last three lines are the kernels' JSON record (each kernel's
 ``launches`` from the paths that run it: phases 4, 5 and 7 for K1-K4
 (``launches_by_phase``), the codec
 path for K5 and K7, phase 5 for K6 and K7 batched, phase 6(c)'s prefill
-and serve and phase 11(b)'s 32k prefill for K8, by phase, with K8's
+and serve, phase 11(b)'s 32k prefill, phase 12(c)'s serves and phase
+13(b)'s real prefill for K8, by phase, with K8's
 times at the hybrid's shapes under ``hybrid``), the card's name and
 power limit again, and the result
 line ``{"ok": true, "device": {...}}``.
@@ -219,6 +238,7 @@ import argparse
 import gc
 import itertools
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -2638,13 +2658,13 @@ def mesh_decode(np, torch, seed: int, mesh) -> None:
         f"{worst} (tolerance 1e-5)")
 
 
-def mesh_paths(np, torch, seed: int, wall_8b: float | None = None) -> None:
+def mesh_paths(np, torch, seed: int, wall_8b: float | None = None) -> int:
     """Phase 12: a one-rank NCCL mesh (1, 1) on cuda:0 through a file
-    rendezvous; 12(a) and 12(b) on it; then the process group is
+    rendezvous; 12(a), 12(b) and 12(c) on it; then the process group is
     destroyed. The card machine has one H100, and NCCL takes one rank per
     card: the collectives run in the CPU tests (4 and 8 gloo ranks); this
     phase proves the DTensor path through the card. The XOR butterfly is
-    not run: on one rank it has no round."""
+    not run: on one rank it has no round. Returns K8's launches (12(c))."""
     import tempfile
 
     import torch.distributed as dist
@@ -2661,8 +2681,292 @@ def mesh_paths(np, torch, seed: int, wall_8b: float | None = None) -> None:
             t0 = time.perf_counter()
             mesh_decode(np, torch, seed, mesh)
             log(f"phase 12(b) done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            k8 = mesh_serve(np, torch, seed, mesh)
+            log(f"phase 12(c) done in {time.perf_counter() - t0:.1f} s")
         finally:
             dist.destroy_process_group()
+    return k8
+
+
+def mesh_serve(np, torch, seed: int, mesh) -> int:
+    """Phase 12(c): serving and the moe step on the one-rank mesh.
+    falcon-mamba-7b (K8 on each rank's shard through ``local_map``) and
+    olmoe-1b-7b (the moe dispatch per batch shard) at full width, cut to
+    2 layers as in 12(a), in f32 on the card, the parameters as DTensors:
+    the prefill of 1 x 128 tokens (one ``scan_chunk``: K8 at (1, 128,
+    8192, 16), the shape of the kernels line's K8 row) and two greedy
+    decodes against the same model unsharded, logits within 1e-5 of max
+    |ref|; olmoe's loss and gradients on the mesh against the unsharded
+    ones (1e-5 relative, 1e-4 of each leaf's max |ref|). Returns K8's
+    launches on the mesh."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline, batch_specs
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import convert
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import (SINGLE, P, ServePlan, axes_for_mesh, distribute,
+                                              make_serve_plan)
+
+    ax = axes_for_mesh(mesh)
+    k8 = 0
+    for arch in ("falcon_mamba_7b", "olmoe_1b_7b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        api = get_model(cfg)
+        b, s, cache_len = 1, cfg.scan_chunk, cfg.scan_chunk + 32
+        batch = SyntheticPipeline(cfg, s, b, seed).device_batch(0, "cuda")
+        batch.pop("labels")
+        ref_model = api.init(cfg, seed, device="cuda", dtype=torch.float32)
+        model = api.init(cfg, seed, device="cuda", dtype=torch.float32)
+        convert.distribute_params(model, api.specs(cfg, ax), mesh)
+        plan = make_serve_plan(cfg, ax, b, cache_len)
+        specs = batch_specs(cfg, ax)
+        logits, cache = api.prefill(ref_model, batch, cfg, SINGLE, cache_len)
+        want = [logits]
+        toks = []
+        for step in range(2):
+            tok = torch.argmax(want[-1], dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            logits, cache = api.decode(ref_model, tok, cache, s + step, cfg, SINGLE, ServePlan())
+            want.append(logits)
+        _build.reset_launches()
+        with mesh_context(mesh):
+            logits, cache = api.prefill(model, {k: distribute(v, specs[k], mesh)
+                                                for k, v in batch.items()}, cfg, ax, cache_len)
+            got = [logits]
+            for step, tok in enumerate(toks):
+                tok = distribute(tok, P(plan.batch_axes or None, None), mesh)
+                logits, cache = api.decode(model, tok, cache, s + step, cfg, ax, plan)
+                got.append(logits)
+        k8 += _build.LAUNCHES["selective_scan"]
+        errs = [float((g.full_tensor() - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+        log(f"phase 12(c) {arch} prefill + 2 decodes on the mesh vs unsharded (f32): relative "
+            f"max |diff| {errs}; K8 launches {_build.LAUNCHES['selective_scan']}")
+        if max(errs) > 1e-5 or not all(bool(torch.isfinite(w).all()) for w in want):
+            raise AssertionError(f"phase 12(c) {arch}: sharded serving differs: {errs}")
+        if cfg.family == "moe":
+            tb = SyntheticPipeline(cfg, s, b, seed).device_batch(0, "cuda")
+            ref_model.requires_grad_(True)
+            model.requires_grad_(True)
+            ref_loss = api.loss(ref_model, tb, cfg, SINGLE)
+            ref_grads = torch.autograd.grad(ref_loss, list(ref_model.parameters()))
+            with mesh_context(mesh):
+                loss = api.loss(model, {k: distribute(v, specs[k], mesh) for k, v in tb.items()},
+                                cfg, ax)
+                grads = torch.autograd.grad(loss, list(model.parameters()))
+            loss_rel = abs(float(loss.detach().full_tensor()) / float(ref_loss.detach()) - 1)
+            grad_rel = max(float((g.full_tensor() - r).abs().max() / r.abs().max().clamp(min=1e-30))
+                           for g, r in zip(grads, ref_grads))
+            log(f"phase 12(c) {arch} loss and gradients on the mesh vs unsharded: loss relative "
+                f"{loss_rel}, gradients {grad_rel} of each leaf's max")
+            if loss_rel > 1e-5 or grad_rel > 1e-4:
+                raise AssertionError(f"phase 12(c) {arch}: the sharded moe step differs")
+        del model, ref_model, cache
+    if not k8:
+        raise AssertionError("phase 12(c): K8 never launched on the mesh")
+    return k8
+
+
+# phase 13(a): cells of the dry run on a fake world of 32 nodes x 8
+# cards, (arch, shape, layers (0: all)); falcon-mamba's train_4k traces
+# 1.87 M ops at its 64 layers (about 100 s on the card machine's core,
+# PERF.md), so the smoke traces 16 of them
+DRYRUN_MESH = "32x8"
+DRYRUN_CELLS = (("falcon_mamba_7b", "train_4k", 16), ("falcon_mamba_7b", "prefill_32k", 0),
+                ("falcon_mamba_7b", "decode_32k", 0), ("olmoe_1b_7b", "train_4k", 0),
+                ("starcoder2_15b", "decode_32k", 0))
+# phase 13(b): the cells phases 8(b) and 6(c) run for real, at a world
+# of 1: (arch, sequence, batch, kind, layers (0: all))
+DRYRUN_REAL = {"train_8x256": ("falcon_mamba_7b", 256, 8, "train", 2),
+               "prefill_32k_b1": ("falcon_mamba_7b", 32768, 1, "prefill", 0)}
+# one cell of the dry run in a process of its own: arch, cell (name,
+# sequence, batch, kind), layers (0: all), the mesh ("1": a world of 1,
+# no mesh; else a fake world of the mesh's size), the record's path
+_CELL = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch import dryrun
+arch, name, seq, batch, kind, layers, mesh_arg, out = sys.argv[1:]
+cfg = get_config(arch)
+if int(layers):
+    cfg = dataclasses.replace(cfg, num_layers=int(layers))
+mesh, mesh_name = None, "1"
+if mesh_arg != "1":
+    dryrun._fake_world(dryrun._mesh_size(mesh_arg, False))
+    mesh, mesh_name = dryrun._mesh_from_arg(mesh_arg, False, device="cuda")
+rec = dryrun.run_cell(arch, ShapeCell(name, int(seq), int(batch), kind), mesh, mesh_name, None,
+                      cfg=cfg)
+with open(out, "w") as f:
+    json.dump(rec, f, default=str)
+"""
+
+
+def _tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dryrun_real_steps(np, torch, seed: int) -> dict:
+    """Phase 13(b)'s real steps on the card: 8(b)'s train step (falcon-
+    mamba-7b at 2 layers, batch 8 x seq 256, one step of ``Trainer``'s
+    step function from a fresh state) and 6(c)'s prefill (full depth, 1 x
+    32,768 tokens), each from ``reset_peak_memory_stats``: the argument
+    bytes, ``max_memory_allocated`` and ``max_memory_reserved``; then the
+    card's memory: ``total_memory``, what lies outside the caching
+    allocator (the CUDA context and libraries: total - free - reserved)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE
+    from repro_torch.models.stack import tree_leaves
+    from repro_torch.serve.serve_step import make_prefill_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    out = {}
+    full = get_config("falcon_mamba_7b")
+    lc = LoopConfig(steps=1, ckpt_every=1, seq_len=256, global_batch=8, seed=seed)
+    tr = Trainer(dataclasses.replace(full, num_layers=2), lc, opt.OptConfig(), device="cuda")
+    state = tr.init_state()
+    batch = tr.pipeline.device_batch(0, tr.dev)
+    arg = (_tensor_bytes(state.params.parameters()) + _tensor_bytes(tree_leaves(state.opt))
+           + _tensor_bytes([state.step]) + _tensor_bytes(batch.values()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = tr.step_fn(state, batch)
+    loss = float(metrics["loss"])
+    out["train_8x256"] = {"arg_bytes": arg, "peak": torch.cuda.max_memory_allocated(),
+                          "reserved": torch.cuda.max_memory_reserved(), "loss": loss}
+    del state, batch, metrics, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    api = get_model(full)
+    model = api.init(full, seed, device="cuda")
+    tokens = np.random.default_rng(seed).integers(0, full.vocab_size, (1, 32768), dtype=np.int32)
+    arg = _tensor_bytes(model.parameters()) + tokens.nbytes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    logits, _state = make_prefill_step(full, api, SINGLE, 0)(model, {"tokens": tokens})
+    torch.cuda.synchronize()
+    out["prefill_32k_b1"] = {"arg_bytes": arg, "peak": torch.cuda.max_memory_allocated(),
+                             "reserved": torch.cuda.max_memory_reserved(),
+                             "k8": _build.LAUNCHES["selective_scan"]}
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("phase 13(b): the real prefill's logits are not finite")
+    free, total = torch.cuda.mem_get_info()
+    out["card"] = {"total_memory": torch.cuda.get_device_properties(0).total_memory,
+                   "outside_allocator": total - free - torch.cuda.memory_reserved()}
+    del model, logits, _state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_paths(np, torch, seed: int) -> int:
+    """Phase 13: the dry run (``repro_torch.launch.dryrun``). Each cell is
+    a process of its own, all started together (each traces on one host
+    core): (a) the ``DRYRUN_CELLS`` on a fake world of 256 ranks, a 32 x
+    8 mesh (32 nodes of 8 NVLink-joined cards, tensor parallel inside a
+    node), each cell's record (strategy, per-rank memory against the
+    budget, the three H100 roofline terms); (b) the two cells of
+    ``DRYRUN_REAL`` at a world of 1 (no mesh) while the card runs the
+    same steps (``dryrun_real_steps``): the argument bytes held equal to
+    the real ones, the predicted peak within 20% of
+    ``max_memory_allocated``. Then the per-rank budget the card gives:
+    ``total_memory`` less what lies outside the allocator and less the
+    allocator's headroom (reserved - allocated at the peaks). Returns
+    K8's launches on the real prefill."""
+    import os
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch.dryrun import HBM_BUDGET
+
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    for old in out.glob("*.json"):
+        old.unlink()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    t0 = time.perf_counter()
+    procs = {}
+    cells = {}
+    for arch, shape, layers in DRYRUN_CELLS:
+        c = SHAPES[shape]
+        cells[f"{arch} x {shape} x {DRYRUN_MESH}"] = (
+            arch, shape, c.seq_len, c.global_batch, c.kind, layers, DRYRUN_MESH,
+            out / f"{arch}.{shape}.{DRYRUN_MESH}.json")
+    for name, (arch, seq, batch, kind, layers) in DRYRUN_REAL.items():
+        cells[name] = (arch, name, seq, batch, kind, layers, "1", out / f"{name}.world1.json")
+    for name, argv in cells.items():
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-c", _CELL, *map(str, argv)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+    try:
+        real = dryrun_real_steps(np, torch, seed)
+        real_s = time.perf_counter() - t0
+        failed = []
+        for name, proc in procs.items():
+            text, _ = proc.communicate(timeout=max(1.0, 240 - (time.perf_counter() - t0)))
+            lines = [ln for ln in text.splitlines() if ln.startswith(("TracedMemoryStats",
+                                                                     "[", "fake world"))]
+            for ln in lines:
+                log(f"phase 13 {name}: {ln}")
+            if proc.returncode:
+                log(f"phase 13 {name} failed (rc {proc.returncode}):\n{text[-3000:]}")
+                failed.append(name)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError(f"phase 13: dry-run cells failed: {failed}")
+    log(f"phase 13 the real steps took {real_s:.1f} s; every cell done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    for arch, shape, _layers in DRYRUN_CELLS:
+        rec = json.loads((out / f"{arch}.{shape}.{DRYRUN_MESH}.json").read_text())
+        peak = rec["peak_mem_bytes"]
+        log(f"phase 13(a) {arch} x {shape} x {DRYRUN_MESH} ({rec['layers']} layers): strategy "
+            f"{rec['strategy']}, "
+            f"trace {rec['trace_s']} s, {rec['traced_ops']} ops; per rank: arguments "
+            f"{rec['arg_bytes_per_chip']}, temp {rec['temp_bytes_per_chip']}, out "
+            f"{rec['out_bytes_per_chip']}, peak {peak} bytes ({peak / rec['hbm_budget']:.3f} "
+            f"of the budget); flops {rec['flops_per_chip']:.6e}, bytes "
+            f"{rec['bytes_per_chip']:.6e}, wire {rec['wire_bytes_per_chip']:.6e}; t_compute "
+            f"{rec['t_compute']:.6f} s, t_memory {rec['t_memory']:.6f} s, t_collective "
+            f"{rec['t_collective']:.6f} s, bound {rec['bottleneck']}, mfu_bound "
+            f"{rec['mfu_bound']:.4f}; collectives {rec['coll_by_kind']}")
+        if not (rec["arg_bytes_per_chip"] > 0 and rec["flops_per_chip"] > 0
+                and math.isfinite(rec["t_collective"])):
+            raise AssertionError(f"phase 13(a) {arch} x {shape}: record {rec}")
+    headroom = 0
+    for name in DRYRUN_REAL:
+        rec = json.loads((out / f"{name}.world1.json").read_text())
+        got = real[name]
+        ratio = rec["peak_mem_bytes"] / got["peak"]
+        headroom = max(headroom, got["reserved"] - got["peak"])
+        log(f"phase 13(b) {name}: argument bytes predicted {rec['arg_bytes_per_chip']}, real "
+            f"{got['arg_bytes']}; peak predicted {rec['peak_mem_bytes']}, real "
+            f"max_memory_allocated {got['peak']} (ratio {ratio:.4f}), max_memory_reserved "
+            f"{got['reserved']}; trace {rec['trace_s']} s, {rec['traced_ops']} ops")
+        if rec["arg_bytes_per_chip"] != got["arg_bytes"]:
+            raise AssertionError(f"phase 13(b) {name}: argument bytes differ")
+        if abs(ratio - 1) > 0.2:
+            raise AssertionError(f"phase 13(b) {name}: the predicted peak is off by more than "
+                                 f"20%")
+    card = real["card"]
+    budget = card["total_memory"] - card["outside_allocator"] - headroom
+    log(f"phase 13 the card's budget a rank: total_memory {card['total_memory']} less "
+        f"{card['outside_allocator']} outside the allocator (context, libraries) less the "
+        f"allocator's headroom {headroom} = {budget} bytes (dryrun.HBM_BUDGET "
+        f"{int(HBM_BUDGET)})")
+    return real["prefill_32k_b1"]["k8"]
 
 
 def main() -> int:
@@ -2694,6 +2998,10 @@ def main() -> int:
     ap.add_argument("--encdec-only", action="store_true",
                     help="build, run phase 11(a) and 11(c) for the encdec family "
                          "(seamless-m4t-large-v2), and stop (no other phase, no result line)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="build, run phase 13 (the dry run on a fake world, and its "
+                         "prediction held against the card's real steps), and stop (no other "
+                         "phase, no result line)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, run phase 12 (the one-rank NCCL mesh: sharded training and "
                          "the sequence-sharded decode), and stop (no other phase, no result "
@@ -2779,6 +3087,11 @@ def main() -> int:
         log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
         log(smi)
         return 0
+    if args.dryrun_only:
+        dryrun_paths(np, torch, args.seed)
+        log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        return 0
     rows = check_kernels(np, torch, args.seed)
     matrix_rows = check_matrix_kernels(np, torch, args.seed)
     codec = codec_path(np, torch, args.seed)
@@ -2805,10 +3118,14 @@ def main() -> int:
     log(f"phase 10 done at {time.perf_counter() - t_start:.1f} s")
     hybrid = hybrid_encdec_paths(np, torch, args.seed)
     log(f"phase 11 done at {time.perf_counter() - t_start:.1f} s")
-    mesh_paths(np, torch, args.seed, wall_8b)
+    mesh_k8 = mesh_paths(np, torch, args.seed, wall_8b)
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
-    # K8 runs on phase 6(c)'s prefill and serve and on phase 11(b)'s prefill
-    scan_row["launches_by_phase"] = {"6": scan_row["launches"], "11": hybrid["launches"]}
+    dryrun_k8 = dryrun_paths(np, torch, args.seed)
+    log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    # K8 runs on phase 6(c)'s prefill and serve, phase 11(b)'s prefill,
+    # the mesh serves of 12(c) and the real prefill of 13(b)
+    scan_row["launches_by_phase"] = {"6": scan_row["launches"], "11": hybrid["launches"],
+                                     "12": mesh_k8, "13": dryrun_k8}
     scan_row["launches"] = sum(scan_row["launches_by_phase"].values())
     scan_row["hybrid"] = hybrid["k8"]
     # each kernel's launches come from the path that runs it

@@ -29,11 +29,18 @@ upstream of it would silently get no gradient. The wrapper therefore
 raises ``ValueError`` when grad mode is on and an operand requires
 grad, on every device. Training runs ``models.mamba._chunk_scan``, the
 reference's associative scan, instead.
+
+On ``meta`` operands (the dry run, ``launch/dryrun.py``) the wrapper
+returns empty outputs of the right shapes and launches nothing: the
+plain version's loop over S would take hours on the host at a 32k
+prefill. ``meta_hook``, when set, is called with the bytes the launch
+would move (``scan_bytes``), which is how the dry run's roofline counts
+K8's memory traffic.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -52,6 +59,18 @@ RING_STAGE_BYTES = 4 * (2 * RING_STEPS * RING_COLS + 32)
 # ring body: below this many bytes in one stage a warp, 4 stages (3
 # ahead), else 2 (chip_smoke.py --scan-only's sweep and the .cu header)
 RING_ONE_AHEAD_BYTES = 1_500_000
+
+
+# called with scan_bytes(...) of each meta launch (the dry run's roofline)
+meta_hook: Callable[[int], None] | None = None
+
+
+def scan_bytes(b: int, s: int, d: int, n: int, *, h0: bool = True,
+               h_last: bool = True) -> int:
+    """Bytes K8 must move: da, dbu and cm read once, h0 read once when
+    given; y written once, h_last written once when returned (the bound
+    column of the kernel table, PERF.md)."""
+    return 4 * (2 * b * s * d * n + b * s * n + b * s * d + (b * d * n) * (h0 + h_last))
 
 
 class ScanPlan(NamedTuple):
@@ -98,7 +117,7 @@ def _check(da, dbu, cm, h0) -> None:
         raise ValueError("selective_scan (K8) has no backward: an operand requires grad "
                          "(training runs models.mamba._chunk_scan)")
     # on the card, for N >= 4, the kernel reads da, dbu and h0 as float4
-    vec = da.device.type != "cpu" and da.dim() == 4 and da.shape[-1] >= 4
+    vec = da.device.type == "cuda" and da.dim() == 4 and da.shape[-1] >= 4
     for name, t in (("da", da), ("dbu", dbu), ("cm", cm), ("h0", h0)):
         if t is None:
             continue
@@ -133,11 +152,18 @@ def selective_scan(da: torch.Tensor, dbu: torch.Tensor, cm: torch.Tensor, *,
     the caller makes it contiguous); on the card, for N >= 4, ``da``,
     ``dbu`` and ``h0`` start on a 16-byte boundary."""
     _check(da, dbu, cm, h0)
+    if da.device.type == "meta":  # shapes only: no launch, no plain loop
+        b, s, d, n = da.shape
+        if meta_hook is not None:
+            meta_hook(scan_bytes(b, s, d, n, h0=h0 is not None, h_last=return_state))
+        y = da.new_empty((b, s, d))
+        return (y, da.new_empty((b, d, n))) if return_state else y
     if da.device.type == "cpu":
         y, h_last = selective_scan_plain(da, dbu, cm, h0)
         return (y, h_last) if return_state else y
     if da.device.type != "cuda":
-        raise ValueError(f"operands must lie on a CUDA device or the CPU, not {da.device}")
+        raise ValueError(f"operands must lie on a CUDA device, the CPU or meta, not "
+                         f"{da.device}")
     b, s, d, n = da.shape
     y = da.new_empty((b, s, d))
     h_last = da.new_empty((b, d, n)) if return_state else None

@@ -222,7 +222,7 @@ def cache_specs(cfg: ArchConfig, ax: MeshAxes, batch: int, plan: ServePlan) -> d
     return {"k": kv_spec, "v": kv_spec, "mem_k": mem_spec, "mem_v": mem_spec}
 
 
-@torch.inference_mode()
+@L.serving
 def prefill(params: EncDecLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             cache_len: int = 0, src_embed=None):
     """Encoder pass + decoder prompt pass; returns (last logits, cache):
@@ -232,8 +232,7 @@ def prefill(params: EncDecLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
     s = tokens.shape[1]
     x = _embed_dec(params, tokens, cfg, torch.arange(s), ax)
     b = x.shape[0]
-    shape = (cfg.dec_layers, b, max(cache_len, s), cfg.num_kv_heads, cfg.head_dim)
-    cache = {k: torch.zeros(shape, dtype=torch.bfloat16, device=x.device) for k in ("k", "v")}
+    cache = T.prefill_cache(cfg, ax, cfg.dec_layers, b, max(cache_len, s), x)
     mks, mvs = [], []
     for i, lp in enumerate(params.dec):
         q, k, v = L.qkv_proj(L.norm(x, lp.ln1, cfg), lp.self_attn, cfg, ax, None)
@@ -254,7 +253,7 @@ def prefill(params: EncDecLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
     return logits[:, 0], cache
 
 
-@torch.inference_mode()
+@L.serving
 def decode_step(params: EncDecLM, token, cache: dict, pos, cfg: ArchConfig,
                 ax: MeshAxes = SINGLE, plan: ServePlan | None = None):
     """One-token decode: self-attention over the ring cache, then

@@ -30,6 +30,7 @@ the reference's sites; it is the identity unless they are DTensors.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -40,7 +41,8 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.shardings import (SINGLE, MeshAxes, P, ServePlan, constrain, distribute,
-                                          gather_inner, is_dtensor, pin_grad, placements)
+                                          gather_inner, has_mesh, is_dtensor, pin_grad,
+                                          placements)
 
 
 class TensorSpec(NamedTuple):
@@ -48,6 +50,20 @@ class TensorSpec(NamedTuple):
 
     shape: tuple[int, ...]
     dtype: torch.dtype
+
+
+def serving(fn):
+    """The decorator of every family's ``prefill`` and ``decode_step``:
+    ``fn`` under ``inference_mode`` with no mesh in context (the
+    single-card serve loops), under ``no_grad`` with one (DTensor
+    refuses inference tensors). The values are the same either way."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with torch.no_grad() if has_mesh() else torch.inference_mode():
+            return fn(*args, **kwargs)
+
+    return run
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
@@ -122,6 +138,11 @@ class Dense(nn.Module):
 
 def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> torch.Tensor:
     x = gather_inner(x)
+    if is_dtensor(x) and not x.is_contiguous():
+        # matmul folds (B, S, d) into (B * S, d) only when the leading
+        # strides allow a view; else it expands w to (B, d, d), which
+        # DTensor materializes on every rank
+        x = x.contiguous()
     y = pin_grad(x @ w if x.dtype == w.dtype else torch.matmul(*_promote(x, w)))
     if b is not None:
         y = y + b.to(y.dtype)
@@ -191,13 +212,31 @@ def _dense_of(x: torch.Tensor, d: Dense) -> torch.Tensor:
     return dense(x, d.w, getattr(d, "b", None))
 
 
+def _split_heads(t: torch.Tensor, n: int, d: int) -> torch.Tensor:
+    """(B, S, n * d) -> (B, S, n, d). A DTensor whose last dim is split
+    over more ranks than divide ``n`` (4 KV heads on 8 tp ranks) is
+    gathered on it first: a shard must hold whole heads."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh, last = t.device_mesh, t.dim() - 1
+        on_last = [i for i, q in enumerate(t.placements)
+                   if isinstance(q, Shard) and q.dim % t.dim() == last]
+        ways = 1
+        for i in on_last:
+            ways *= mesh.size(i)
+        if n % ways:
+            t = t.redistribute(mesh, [Replicate() if i in on_last else q
+                                      for i, q in enumerate(t.placements)])
+    return t.reshape(*t.shape[:-1], n, d)
+
+
 def qkv_proj(x: torch.Tensor, p: Attn, cfg: ArchConfig, ax: MeshAxes, positions):
     """(B, S, d_model) -> q (B, S, H, hd), k and v (B, S, KV, hd); RoPE
     on q and k when ``positions`` is given."""
-    b, s, _ = x.shape
-    q = _dense_of(x, p.wq).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = _dense_of(x, p.wk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = _dense_of(x, p.wv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = _split_heads(_dense_of(x, p.wq), cfg.num_heads, cfg.head_dim)
+    k = _split_heads(_dense_of(x, p.wk), cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(_dense_of(x, p.wv), cfg.num_kv_heads, cfg.head_dim)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -388,9 +427,23 @@ def attention_decode_general(x1, cache_k, cache_v, p: Attn, cfg: ArchConfig, ax:
     cache_k = constrain(cache_k, P(bspec, None, plan.kv_axes, None))
     cache_v = constrain(cache_v, P(bspec, None, plan.kv_axes, None))
     valid = _ring_valid(pos, smax, cfg.sliding_window, x1.device)
-    o, _m, l = _grouped_attend(q, cache_k, cache_v, cfg, valid)
-    o = (o / l[..., None]).to(x1.dtype)
-    o = o.permute(0, 3, 1, 2, 4).reshape(b, 1, cfg.q_dim)
+
+    def attend(q, ck, cv):
+        o, _m, l = _grouped_attend(q, ck, cv, cfg, valid)
+        o = (o / l[..., None]).to(x1.dtype)
+        return o.permute(0, 3, 1, 2, 4).reshape(q.shape[0], 1, -1)
+
+    if is_dtensor(cache_k):  # each rank on its (batch rows, KV heads) shard
+        from torch.distributed.tensor.experimental import local_map
+
+        mesh = cache_k.device_mesh
+        heads = list(placements(P(bspec, None, plan.kv_axes, None), mesh))
+        o = local_map(attend, out_placements=list(placements(P(bspec, None, plan.kv_axes),
+                                                             mesh)),
+                      in_placements=(heads, heads, heads), device_mesh=mesh,
+                      redistribute_inputs=True)(q, cache_k, cache_v)
+    else:
+        o = attend(q, cache_k, cache_v)
     return _dense_of(o, p.wo), cache_k, cache_v
 
 

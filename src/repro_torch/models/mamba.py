@@ -17,7 +17,9 @@ backward; K8 has none either and refuses an operand that requires grad.
 ``mamba_mix`` takes ``_chunk_scan`` exactly when grad mode is on and the
 input, the carried state or a parameter of the layer requires grad. It
 is the reference's second path, not a fallback: prefill and decode run
-under ``inference_mode`` and always launch K8.
+under ``inference_mode`` (``no_grad`` on a mesh: ``layers.serving``) and
+always launch K8. On a mesh the chunk loop runs on each rank's shard
+(``_chunk_loop_shards``): K8 takes plain tensors.
 
 Layouts are the reference's (src/repro/models/mamba.py): dense weights
 ``(d_in, d_out)`` applied as ``x @ w``, and the stacked cache
@@ -39,7 +41,8 @@ from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models import layers as L
 from repro_torch.models import stack
 from repro_torch.models.layers import TensorSpec
-from repro_torch.models.shardings import SINGLE, MeshAxes, P, ServePlan, constrain
+from repro_torch.models.shardings import (SINGLE, MeshAxes, P, ServePlan, constrain, distribute,
+                                          is_dtensor, laid_out_as, placements)
 from repro_torch.models.transformer import _on, chunked_xent, res_spec
 
 # ---------------------------------------------------------------------------
@@ -137,8 +140,8 @@ def _causal_conv(x, conv_w, conv_b, init_state=None):
     in the promoted dtype of x and the state, as in the reference."""
     k = conv_w.shape[0]
     if init_state is None:
-        init_state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
-                                 device=x.device)
+        init_state = laid_out_as(torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                                             device=x.device), x)
     xp = torch.cat([init_state, x], dim=1)
     s = x.shape[1]
     y = sum(xp[:, i : i + s] * conv_w[i].to(x.dtype) for i in range(k))
@@ -147,14 +150,18 @@ def _causal_conv(x, conv_w, conv_b, init_state=None):
     return y + conv_b.to(x.dtype), xp[:, -(k - 1):].clone()
 
 
-def _ssm_params(u, p: MambaLayer, cfg: ArchConfig):
-    """u: (B, S, di) post-conv. Returns dA (B,S,di,N) f32, dBu (B,S,di,N)
-    f32, C (B,S,N) f32, each contiguous."""
+def _ssm_params(u, w_x, w_dt, b_dt, a_log, cfg: ArchConfig, reduce=None):
+    """u: (B, S, di) post-conv; the layer's ``x_proj.w``, ``dt_proj.w``,
+    ``dt_proj.b`` and ``a_log``. Returns dA (B,S,di,N) f32, dBu (B,S,di,N)
+    f32, C (B,S,N) f32, each contiguous. ``reduce`` (a rank's shard of
+    d_inner) sums x_proj's partial product over the ranks."""
     n, r = cfg.ssm_state, cfg.dt_rank
-    xdbc = L.dense(u, p.x_proj.w)  # (B,S,r+2N)
+    xdbc = L.dense(u, w_x)  # (B,S,r+2N)
+    if reduce is not None:
+        xdbc = reduce(xdbc)
     dt_r, bm, cm = xdbc.split([r, n, n], dim=-1)
-    dt = F.softplus((L.dense(dt_r, p.dt_proj.w) + p.dt_proj.b).float())  # (B,S,di)
-    a = -torch.exp(p.a_log.float())  # (di, N)
+    dt = F.softplus((L.dense(dt_r, w_dt) + b_dt).float())  # (B,S,di)
+    a = -torch.exp(a_log.float())  # (di, N)
     da = torch.exp(dt[..., None] * a)  # (B,S,di,N)
     dbu = (dt * u.float())[..., None] * bm.float()[:, :, None, :]
     return da, dbu, cm.float().contiguous()
@@ -197,6 +204,72 @@ def _chunk_scan(da, dbu, h0):
     return h_all, h_all[:, -1]
 
 
+def _chunk_loop(u, w_x, w_dt, b_dt, a_log, h, cfg: ArchConfig, train: bool, dtype,
+                reduce=None):
+    """The chunk loop of ``mamba_mix`` over u (B, S, di) post-conv from the
+    carried state h (B, di, N) f32: each ``fit_chunk(S, scan_chunk)``
+    chunk's ``_ssm_params``, then K8, or under grad ``_chunk_scan`` and
+    the output einsum. Returns (y (B, S, di) in ``dtype``, h_last)."""
+    s = u.shape[1]
+    chunk = L.fit_chunk(s, cfg.scan_chunk)
+    ys = []
+    for c0 in range(0, s, chunk):
+        da, dbu, cm = _ssm_params(u[:, c0 : c0 + chunk], w_x, w_dt, b_dt, a_log, cfg, reduce)
+        if train:
+            h_all, h = _chunk_scan(da, dbu, h)
+            y = torch.einsum("bcdn,bcn->bcd", h_all, cm)
+        else:
+            y, h = selective_scan(da, dbu, cm, h0=h, return_state=True)
+        ys.append(y.to(dtype))
+    return torch.cat(ys, dim=1), h
+
+
+def _chunk_loop_shards(u, p: MambaLayer, h, cfg: ArchConfig, ax: MeshAxes, train: bool,
+                       dtype):
+    """``_chunk_loop`` on DTensors, each rank on its own shard
+    (``local_map``): the batch rows on the dp axes and d_inner on tp, as
+    the reference's ``act`` spec lays them out, so K8 gets plain tensors
+    and the loop dispatches no DTensor op. x_proj's product contracts
+    the sharded d_inner: its partial sums are all-reduced over the tp
+    axis each chunk, the reduction XLA inserts at the reference's
+    ``x_proj`` (differentiable under grad). A weight's gradient on a
+    rank covers only its batch rows: it is a partial sum over the dp
+    axes."""
+    import torch.distributed as dist
+    from torch.distributed.nn import functional as dfn
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, tp, dp = u.device_mesh, ax.tp_if(cfg.d_inner), ax.dp_if(u.shape[0])
+    pl = lambda *spec: list(placements(P(*spec), mesh))
+    act, state = pl(dp, None, tp), pl(dp, tp, None)
+    if not is_dtensor(h):
+        h = distribute(h, P(dp, tp, None), mesh)
+    names = list(mesh.mesh_dim_names)
+    group = None
+    if tp is not None and mesh.size(names.index(tp)) > 1:
+        group = mesh.get_group(tp)
+
+    def reduce(t):
+        if train:
+            return dfn.all_reduce(t, group=group)
+        dist.all_reduce(t, group=group)
+        return t
+
+    def local(u, w_x, w_dt, b_dt, a_log, h):
+        return _chunk_loop(u, w_x, w_dt, b_dt, a_log, h, cfg, train, dtype,
+                           None if group is None else reduce)
+
+    dp_dims = {names.index(a) for a in dp}
+    weights = (pl(tp, None), pl(None, tp), pl(tp), pl(tp, None))
+    grads = tuple([Partial() if i in dp_dims else q for i, q in enumerate(w)] for w in weights)
+    return local_map(local, out_placements=(act, state),
+                     in_placements=(act, *weights, state),
+                     in_grad_placements=(act, *grads, state),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        u, p.x_proj.w, p.dt_proj.w, p.dt_proj.b, p.a_log, h)
+
+
 def _needs_grad(x, p: MambaLayer, init_state) -> bool:
     if not torch.is_grad_enabled():
         return False
@@ -213,26 +286,21 @@ def mamba_mix(x, p: MambaLayer, cfg: ArchConfig, ax: MeshAxes = SINGLE, init_sta
     train = _needs_grad(x, p, init_state)
     b, s, _ = x.shape
     di, n = cfg.d_inner, cfg.ssm_state
-    act = P(ax.dp, None, ax.tp_if(di))
+    act = P(ax.dp_if(b), None, ax.tp_if(di))
     xz = constrain(L.dense(x, p.in_proj.w), act)  # (B,S,2di)
     u, z = xz.split(di, dim=-1)
     conv0 = init_state["conv"] if init_state else None
     u, conv_state = _causal_conv(u, p.conv_w, p.conv_b, conv0)
+    conv_state = constrain(conv_state, act)
     u = constrain(F.silu(u), act)
 
-    chunk = L.fit_chunk(s, cfg.scan_chunk)
     h = init_state["ssm"] if init_state else torch.zeros((b, di, n), dtype=torch.float32,
                                                          device=x.device)
-    ys = []
-    for c0 in range(0, s, chunk):
-        da, dbu, cm = _ssm_params(u[:, c0 : c0 + chunk], p, cfg)
-        if train:
-            h_all, h = _chunk_scan(da, dbu, h)
-            y = torch.einsum("bcdn,bcn->bcd", h_all, cm)
-        else:
-            y, h = selective_scan(da, dbu, cm, h0=h, return_state=True)
-        ys.append(y.to(x.dtype))
-    y = torch.cat(ys, dim=1)
+    if is_dtensor(u):
+        y, h = _chunk_loop_shards(u, p, h, cfg, ax, train, x.dtype)
+    else:
+        y, h = _chunk_loop(u, p.x_proj.w, p.dt_proj.w, p.dt_proj.b, p.a_log, h, cfg, train,
+                           x.dtype)
     y = y + u * p.d_skip.to(u.dtype)
     y = constrain(y * F.silu(z), act)
     out = L.dense(y, p.out_proj.w)
@@ -299,7 +367,7 @@ def _run_layers(params: MambaLM, x, cfg: ArchConfig, ax: MeshAxes, cache):
     return L.norm(x, params.ln_f, cfg), states
 
 
-@torch.inference_mode()
+@L.serving
 def prefill(params: MambaLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             cache_len: int = 0):
     """Run the full prompt, returning last-token logits (B, vocab) and the
@@ -311,7 +379,7 @@ def prefill(params: MambaLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
     return logits[:, 0], states
 
 
-@torch.inference_mode()
+@L.serving
 def decode_step(params: MambaLM, token, cache, pos, cfg: ArchConfig, ax: MeshAxes = SINGLE,
                 plan: ServePlan | None = None):
     """Single-token decode: conv ring shift + one recurrence step. token

@@ -26,9 +26,17 @@ the reference's result:
 
 Expert placement on a mesh (``ep_axis``, ``expert_ff_axis``,
 ``moe_specs``) is the reference's: the expert dim on tp when it divides,
-else each expert's FFN hidden dim on tp. ``constrain`` pins the
-reference's layouts; the moe train step does not yet run on a mesh
-(ROADMAP queue 1).
+else each expert's FFN hidden dim on tp. On DTensors (``_moe_ffn_shards``)
+each rank routes, builds its dispatch table and gathers its rows on its
+own batch shard (``local_map``: the table is per sequence); the expert
+counts and the probability sums of the aux loss come out as partial
+sums over the dp axes. The
+expert FFN runs per shard too, with its input, output and gradient
+placements stated: experts on tp (``ep_axis``), or their hidden dim on
+tp (``expert_ff_axis``: Megatron's pair of reductions inside the shard,
+the down projection's output summed over tp forward, the input's
+gradient summed backward), each weight's gradient a partial sum over
+the dp axes.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from torch.nn import functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.shardings import SINGLE, MeshAxes, P, constrain
+from repro_torch.models.shardings import SINGLE, MeshAxes, P, constrain, is_dtensor
 
 
 def ep_axis(cfg: ArchConfig, ax: MeshAxes):
@@ -98,29 +106,48 @@ def top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def route(x: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig):
+def route_sums(x: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig):
     """x (B, S, D) -> (gates (B, S, kk) f32, expert idx (B, S, kk) int64,
-    the Switch-style load-balance aux loss E * sum_e(frac_tokens_e *
-    mean_prob_e), f32)."""
+    each expert's count of choices (E,) f32, each expert's router
+    probability summed over (B, S) (E,) f32). The sums are those of the
+    rows given: on a mesh, one batch shard's partial sums (``aux_loss``
+    takes them either way)."""
     logits = L.einsum_f32("bsd,de->bse", x, router_w.to(x.dtype))
-    kk, e = cfg.experts_per_token, cfg.num_experts
-    top_vals, top_idx = top_k(logits, kk)
+    top_vals, top_idx = top_k(logits, cfg.experts_per_token)
     gates = torch.softmax(top_vals, dim=-1)
     probs = torch.softmax(logits, dim=-1)
-    # the mean over (B, S) of each token's one-hot count: integer sums,
-    # exact in f32, as the reference's one_hot sum is
-    counts = torch.bincount(top_idx.reshape(-1), minlength=e).to(torch.float32)
-    frac = counts / (top_idx.shape[0] * top_idx.shape[1]) / kk
-    aux = e * torch.sum(frac * torch.mean(probs, dim=(0, 1)))
-    return gates, top_idx, aux
+    # integer sums, exact in f32, as the reference's one_hot sum is; a
+    # scatter (not ``bincount``, whose output length depends on the
+    # values) so that a ``meta`` tensor (the dry run) counts the same way
+    flat = top_idx.reshape(-1)
+    counts = torch.zeros(cfg.num_experts, dtype=torch.int64, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat)).to(torch.float32)
+    return gates, top_idx, counts, probs.sum(dim=(0, 1))
 
 
-def moe_ffn(x: torch.Tensor, p: Moe, cfg: ArchConfig, ax: MeshAxes = SINGLE):
-    """Capacity-dropped top-k MoE. x (B, S, D) -> ((B, S, D), aux)."""
+def aux_loss(counts, prob_sum, tokens: int, cfg: ArchConfig):
+    """The Switch-style load-balance aux loss E * sum_e(frac_tokens_e *
+    mean_prob_e) from ``route_sums``' sums over ``tokens`` = B * S."""
+    e, kk = cfg.num_experts, cfg.experts_per_token
+    return e * torch.sum(counts / tokens / kk * (prob_sum / tokens))
+
+
+def route(x: torch.Tensor, router_w: torch.Tensor, cfg: ArchConfig):
+    """x (B, S, D) -> (gates (B, S, kk) f32, expert idx (B, S, kk) int64,
+    the aux loss, f32)."""
+    gates, idx, counts, prob_sum = route_sums(x, router_w, cfg)
+    return gates, idx, aux_loss(counts, prob_sum, x.shape[0] * x.shape[1], cfg)
+
+
+def _dispatch(x, gates, idx, cfg: ArchConfig):
+    """The dispatch of one batch (or batch shard): x (B, S, D), gates and
+    idx (B, S, kk) -> (xe (B, E, cap, D) the tokens gathered per expert,
+    slot (B, S * kk) each choice's column of the flattened (E * cap)
+    expert rows, the sentinel E * cap where dropped, gk (B, S, kk) the
+    gates of the kept choices in x's dtype)."""
     b, s, d = x.shape
     e, kk = cfg.num_experts, cfg.experts_per_token
     cap = capacity(cfg, s)
-    gates, idx, aux = route(x, p.router.w, cfg)  # (B, S, kk)
 
     # slot assignment: the rank of each (token, choice) within its expert,
     # choices flattened token-major so that earlier tokens win the slots;
@@ -142,21 +169,134 @@ def moe_ffn(x: torch.Tensor, p: Moe, cfg: ArchConfig, ax: MeshAxes = SINGLE):
     rows = torch.arange(b, device=x.device)
     xpad = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
     xe = xpad[rows[:, None, None], dispatch]
+    return xe, slot, (gates * keep.reshape(b, s, kk)).to(x.dtype)
+
+
+def _expert_ffn(xe, wg, wu, wd, cfg: ArchConfig, ax: MeshAxes = SINGLE):
+    """The expert FFN, batched over E: xe (B, E, cap, D) -> (B, E, cap, D)."""
     ep, ff = ep_axis(cfg, ax), expert_ff_axis(cfg, ax)
-    xe = constrain(xe, P(ax.dp, ep, None, None))
-
-    # the expert FFN, batched over E
     act = L._gelu if cfg.act.startswith("gelu") else F.silu
-    h = act(torch.einsum("becd,edf->becf", xe, p.wg)) * torch.einsum(
-        "becd,edf->becf", xe, p.wu)
+    h = act(torch.einsum("becd,edf->becf", xe, wg)) * torch.einsum("becd,edf->becf", xe, wu)
     h = constrain(h, P(ax.dp, ep, None, ff))
-    ye = constrain(torch.einsum("becf,efd->becd", h, p.wd), P(ax.dp, ep, None, None))
+    return torch.einsum("becf,efd->becd", h, wd)
 
-    # combine: gather back each token's kk expert outputs
+
+def _combine(ye, slot, gk):
+    """Gather back each token's kk expert outputs and sum them by their
+    gates: ye (B, E, cap, D), slot (B, S * kk), gk (B, S, kk) -> (B, S, D)."""
+    b, e, cap, d = ye.shape
+    s, kk = gk.shape[1], gk.shape[2]
+    rows = torch.arange(b, device=ye.device)
     yflat = torch.cat([ye.reshape(b, e * cap, d), ye.new_zeros((b, 1, d))], dim=1)
     yk = yflat[rows[:, None], slot].reshape(b, s, kk, d)
-    gk = (gates * keep.reshape(b, s, kk)).to(yk.dtype)
-    return constrain(torch.einsum("bskd,bsk->bsd", yk, gk), P(ax.dp, None, None)), aux
+    return torch.einsum("bskd,bsk->bsd", yk, gk)
+
+
+def moe_ffn(x: torch.Tensor, p: Moe, cfg: ArchConfig, ax: MeshAxes = SINGLE):
+    """Capacity-dropped top-k MoE. x (B, S, D) -> ((B, S, D), aux)."""
+    if is_dtensor(x):
+        return _moe_ffn_shards(x, p, cfg, ax)
+    gates, idx, aux = route(x, p.router.w, cfg)  # (B, S, kk)
+    xe, slot, gk = _dispatch(x, gates, idx, cfg)
+    ye = _expert_ffn(xe, p.wg, p.wu, p.wd, cfg, ax)
+    return _combine(ye, slot, gk), aux
+
+
+class _SumForward(torch.autograd.Function):
+    """All-reduce over ``group`` forward, the identity backward (the
+    partial sums of a row-parallel product; what follows is replicated)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        import torch.distributed as dist
+
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """The identity forward, all-reduce over ``group`` backward (the input
+    of a column-parallel product: each rank's gradient covers its
+    columns only)."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _moe_ffn_shards(x, p: Moe, cfg: ArchConfig, ax: MeshAxes):
+    """``moe_ffn`` on DTensors (see the module docstring): three
+    ``local_map`` stages (route and dispatch, the expert FFN, combine)
+    on each rank's batch rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = list(mesh.mesh_dim_names)
+    ep, ff = ep_axis(cfg, ax), expert_ff_axis(cfg, ax)
+    dp = ax.dp_if(x.shape[0])
+
+    def pl(batch=None, tp=None):
+        """Per mesh dim: ``batch`` on the dp axes that shard the batch (a
+        placement, or None for Replicate), ``tp`` on the tp axis,
+        Replicate elsewhere."""
+        return [(batch or Replicate()) if n in dp else
+                (tp or Replicate()) if n == ax.tp else Replicate() for n in names]
+
+    rows = pl(Shard(0))
+    partial_dp = pl(Partial())
+
+    def route_local(x, router_w):
+        gates, idx, counts, prob_sum = route_sums(x, router_w, cfg)
+        return (*_dispatch(x, gates, idx, cfg), counts, prob_sum)
+
+    xe, slot, gk, counts, prob_sum = local_map(
+        route_local, out_placements=(rows, rows, rows, partial_dp, partial_dp),
+        in_placements=(rows, pl()), in_grad_placements=(rows, partial_dp),
+        device_mesh=mesh, redistribute_inputs=True)(x, p.router.w)
+    aux = aux_loss(counts, prob_sum, x.shape[0] * x.shape[1], cfg)
+
+    # the expert FFN: experts on tp, or their hidden dim on tp (summed
+    # over tp inside the shard), or whole on every rank
+    group = None
+    if ep is not None:
+        xe_pl = pl(Shard(0), Shard(1))
+        w_pl = [pl(None, Shard(0))] * 3
+    elif ff is not None:
+        xe_pl = rows
+        w_pl = [pl(None, Shard(2)), pl(None, Shard(2)), pl(None, Shard(1))]
+        group = mesh.get_group(names.index(ax.tp))
+    else:
+        xe_pl = rows
+        w_pl = [pl()] * 3
+    w_grad = [[Partial() if n in dp else q for n, q in zip(names, w)] for w in w_pl]
+
+    def ffn_local(xe, wg, wu, wd):
+        if group is None:
+            return _expert_ffn(xe, wg, wu, wd, cfg)
+        ye = _expert_ffn(_SumBackward.apply(xe, group), wg, wu, wd, cfg)
+        return _SumForward.apply(ye, group)
+
+    ye = local_map(ffn_local, out_placements=xe_pl, in_placements=(xe_pl, *w_pl),
+                   in_grad_placements=(xe_pl, *w_grad), device_mesh=mesh,
+                   redistribute_inputs=True)(xe, p.wg, p.wu, p.wd)
+    y = local_map(_combine, out_placements=rows, in_placements=(rows, rows, rows),
+                  device_mesh=mesh, redistribute_inputs=True)(ye, slot, gk)
+    return constrain(y, P(dp, None, None)), aux
 
 
 def moe_ffn_noaux(x: torch.Tensor, p: Moe, cfg: ArchConfig,

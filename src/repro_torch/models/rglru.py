@@ -53,7 +53,8 @@ from repro_torch.models import stack
 from repro_torch.models.layers import TensorSpec
 from repro_torch.models.mamba import _associative_scan, _causal_conv
 from repro_torch.models import transformer as T
-from repro_torch.models.shardings import SINGLE, MeshAxes, P, ServePlan, constrain
+from repro_torch.models.shardings import (SINGLE, MeshAxes, P, ServePlan, constrain, distribute,
+                                          is_dtensor, placements)
 from repro_torch.models.transformer import _on, chunked_xent, res_spec
 
 _C = 8.0  # RG-LRU temperature
@@ -247,7 +248,31 @@ def _gates(x, p: RgLru, cfg: ArchConfig):
     return log_a, i * x.float()
 
 
-def rglru_scan(x, p: RgLru, cfg: ArchConfig, h0=None):
+def _scan_shards(da, dbu, cm, h0, ax: MeshAxes):
+    """K8 with its last state, (y, h_last). On DTensors each rank scans
+    its own shard (``local_map``): the batch rows on the dp axes and D on
+    tp, as the reference's ``act`` spec lays them out; a plain ``cm`` or
+    ``h0`` (a fresh state) is laid out the same way first."""
+    if not is_dtensor(da):
+        return selective_scan(da, dbu, cm, h0=h0, return_state=True)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, tp, dp = da.device_mesh, ax.tp_if(da.shape[2]), ax.dp_if(da.shape[0])
+    pl = lambda spec: list(placements(spec, mesh))
+    specs = (P(dp, None, tp, None), P(dp, None, tp, None), P(dp, None, None), P(dp, tp, None))
+    args = [t if is_dtensor(t) else distribute(t, sp, mesh)
+            for t, sp in zip((da, dbu, cm, h0), specs)]
+
+    def local(a, b, c, h):
+        return selective_scan(a.contiguous(), b.contiguous(), c.contiguous(),
+                              h0=h.contiguous(), return_state=True)
+
+    return local_map(local, out_placements=(pl(P(dp, None, tp)), pl(specs[3])),
+                     in_placements=tuple(pl(sp) for sp in specs), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def rglru_scan(x, p: RgLru, cfg: ArchConfig, h0=None, ax: MeshAxes = SINGLE):
     """x: (B, S, W); h0: (B, W) f32 carry. Returns (y (B, S, W) in x's
     dtype, h_last (B, W) f32): through K8 unless grad is needed (see
     the module docstring)."""
@@ -267,8 +292,8 @@ def rglru_scan(x, p: RgLru, cfg: ArchConfig, h0=None):
             ys.append(hs.to(x.dtype))
         return torch.cat(ys, dim=1), h
     ones = torch.ones((b, s, 1), dtype=torch.float32, device=x.device)
-    y, h = selective_scan(a.reshape(b, s, w, 1), bt.reshape(b, s, w, 1), ones,
-                          h0=h0.reshape(b, w, 1).contiguous(), return_state=True)
+    y, h = _scan_shards(a.reshape(b, s, w, 1), bt.reshape(b, s, w, 1), ones,
+                        h0.reshape(b, w, 1).contiguous(), ax)
     return y.to(x.dtype), h.reshape(b, w)
 
 
@@ -286,13 +311,13 @@ def rec_mix(x, p: RecBlock, cfg: ArchConfig, ax: MeshAxes = SINGLE, state=None):
     Returns (out (B, S, d_model), the new state)."""
     xb = L.dense(x, p.lin_x.w)
     yb = L._gelu(L.dense(x, p.lin_y.w))
-    xb = constrain(xb, P(ax.dp, None, ax.tp_if(cfg.lru_width)))
+    xb = constrain(xb, P(ax.dp_if(x.shape[0]), None, ax.tp_if(cfg.lru_width)))
     conv0 = state["conv"] if state else None
     xb, conv_state = _causal_conv(xb, p.conv_w, p.conv_b, conv0)
     if x.shape[1] == 1 and state is not None:
         lru_out, h_last = rglru_step(xb, p.lru, cfg, state["lru"])
     else:
-        lru_out, h_last = rglru_scan(xb, p.lru, cfg, state["lru"] if state else None)
+        lru_out, h_last = rglru_scan(xb, p.lru, cfg, state["lru"] if state else None, ax)
     out = L.dense(lru_out * yb, p.lin_out.w)
     return out, {"conv": conv_state, "lru": h_last}
 
@@ -396,7 +421,7 @@ def _decode_block(x1, p: Block, kind: str, cfg: ArchConfig, ax: MeshAxes, pos: i
     return x1 + L.mlp(L.norm(x1, p.ln2, cfg), p.ffn, cfg, ax), st
 
 
-@torch.inference_mode()
+@L.serving
 def decode_step(params: HybridLM, token, cache: dict, pos, cfg: ArchConfig,
                 ax: MeshAxes = SINGLE, plan: ServePlan | None = None):
     """One-token decode: each rec block one recurrence step from its
@@ -426,7 +451,14 @@ def decode_step(params: HybridLM, token, cache: dict, pos, cfg: ArchConfig,
     return logits[:, 0], {"groups": gcache, "tail": tcache}
 
 
-@torch.inference_mode()
+def _roll(t, shift: int):
+    """``torch.roll(t, shift, dims=1)`` as the two slices it moves (torch
+    2.11's DTensor has no rule for ``roll``)."""
+    n = t.shape[1]
+    return torch.cat([t[:, n - shift:], t[:, :n - shift]], dim=1)
+
+
+@L.serving
 def prefill(params: HybridLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             cache_len: int = 0):
     """Prompt pass. Fills the LRU and conv states and the window KV
@@ -451,8 +483,8 @@ def prefill(params: HybridLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             mix = L.dense(o, p.mix.wo.w, getattr(p.mix.wo, "b", None))
             # ring-layout trailing window: roll so slot = pos % w
             shift = s % w
-            st = {"k": torch.roll(k[:, -w:], shift, dims=1).to(torch.bfloat16),
-                  "v": torch.roll(v[:, -w:], shift, dims=1).to(torch.bfloat16)}
+            st = {"k": _roll(k[:, -w:], shift).to(torch.bfloat16),
+                  "v": _roll(v[:, -w:], shift).to(torch.bfloat16)}
         h = h + mix
         return h + L.mlp(L.norm(h, p.ln2, cfg), p.ffn, cfg, ax), st
 

@@ -82,6 +82,11 @@ class MeshAxes:
     def tp_if(self, dim: int):
         return self.tp if self.tp_divides(dim) else None
 
+    def dp_if(self, batch: int) -> tuple[str, ...]:
+        """The dp axes when they divide ``batch``, else none (a batch of
+        1 is whole on every rank)."""
+        return self.dp if batch % max(self.dp_size, 1) == 0 else ()
+
 
 SINGLE = MeshAxes(dp=(), fsdp=None, tp=None)
 
@@ -245,6 +250,17 @@ def distribute(t: torch.Tensor, spec: P, mesh, src_rank: int | None = None) -> t
     from torch.distributed.tensor import distribute_tensor
 
     return distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=src_rank)
+
+
+def laid_out_as(t: torch.Tensor, ref) -> torch.Tensor:
+    """``t`` (every rank's same global value) as a DTensor with ``ref``'s
+    mesh and placements when ``ref`` is a DTensor (a zero state beside a
+    sharded activation, kept from forcing it whole); else ``t``."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, ref.device_mesh, ref.placements, src_data_rank=None)
 
 
 def gather_inner(x):

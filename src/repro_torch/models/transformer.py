@@ -36,7 +36,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import stack
-from repro_torch.models.shardings import SINGLE, MeshAxes, P, ServePlan, constrain
+from repro_torch.models.shardings import (SINGLE, MeshAxes, P, ServePlan, constrain, distribute,
+                                          is_dtensor, make_serve_plan, pin_grad)
 
 # ---------------------------------------------------------------------------
 # parameters
@@ -234,6 +235,10 @@ def chunked_xent(x, w, labels, cfg: ArchConfig, ax: MeshAxes = SINGLE, loss_mask
     b, s, _ = x.shape
     chunk = L.fit_chunk(s, chunk)
     x = constrain(x, P(ax.dp, None, None))  # the chunks slice the sequence: gather it
+    # the chunks' weight gradient laid out as the weight: a tied embedding
+    # adds it to the lookup's, which torch 2.11's DTensor cannot add from
+    # another layout
+    w = pin_grad(w)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c0 in range(0, s, chunk):
@@ -286,7 +291,21 @@ def cache_specs(cfg: ArchConfig, ax: MeshAxes, batch: int, plan: ServePlan) -> d
     return {"k": spec, "v": spec}
 
 
-@torch.inference_mode()
+def prefill_cache(cfg: ArchConfig, ax: MeshAxes, layers: int, b: int, length: int, x) -> dict:
+    """A prefill's zero k and v caches, (layers, B, length, KV, hd) bf16;
+    beside a DTensor ``x``, DTensors with the batch and KV heads laid out
+    as the decode plan lays them out (the sequence whole: the prompt
+    writes a prefix of it)."""
+    shape = (layers, b, length, cfg.num_kv_heads, cfg.head_dim)
+    cache = {k: torch.zeros(shape, dtype=torch.bfloat16, device=x.device) for k in ("k", "v")}
+    if is_dtensor(x):
+        plan = make_serve_plan(cfg, ax, b, length)
+        spec = P(None, plan.batch_axes, None, plan.kv_axes, None)
+        cache = {k: distribute(c, spec, x.device_mesh) for k, c in cache.items()}
+    return cache
+
+
+@L.serving
 def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGLE,
             cache_len: int = 0, prefix_embed=None, ffn_apply=None):
     """Full-sequence forward that also fills the KV cache. Returns
@@ -296,8 +315,7 @@ def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGL
     x = _embed_with_prefix(params, tokens, prefix_embed, ax)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)
-    shape = (cfg.num_layers, b, max(cache_len, s), cfg.num_kv_heads, cfg.head_dim)
-    cache = {k: torch.zeros(shape, dtype=torch.bfloat16, device=x.device) for k in ("k", "v")}
+    cache = prefill_cache(cfg, ax, cfg.num_layers, b, max(cache_len, s), x)
     for i, lp in enumerate(params.layers):
         xn = L.norm(x, lp.ln1, cfg)
         q, k, v = L.qkv_proj(xn, lp.attn, cfg, ax, positions)
@@ -312,7 +330,7 @@ def prefill(params: TransformerLM, tokens, cfg: ArchConfig, ax: MeshAxes = SINGL
     return logits[:, 0], cache
 
 
-@torch.inference_mode()
+@L.serving
 def decode_step(params: TransformerLM, token, cache: dict, pos, cfg: ArchConfig,
                 ax: MeshAxes = SINGLE, plan: ServePlan | None = None, ffn_apply=None):
     """One-token decode. token: (B, 1) ints; pos: the position being

@@ -62,6 +62,8 @@ def test_every_module_imports_without_jax_or_repro():
                     "repro_torch.analysis.roofline", "repro_torch.launch.mesh",
                     "repro_torch.core.distributed"}
         assert slice_12 <= set(names), slice_12 - set(names)
+        slice_13 = {"repro_torch.launch.specs", "repro_torch.launch.dryrun"}
+        assert slice_13 <= set(names), slice_13 - set(names)
         print(len(names))
         """
     )
@@ -196,6 +198,59 @@ def test_no_private_torch_distributed_imports():
     assert not hits, hits
 
 
+def test_private_testing_module_only_in_the_dry_run():
+    """``torch.testing._internal`` (the fake process group) is imported
+    by ``launch/dryrun.py`` alone, inside the function that builds the
+    fake world; nothing else of the port or the smoke names it."""
+    pattern = re.compile(r"torch\.testing\._internal")
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    hits = {p.relative_to(ROOT).as_posix() for p in files if pattern.search(p.read_text())}
+    assert hits == {"src/repro_torch/launch/dryrun.py"}, hits
+    text = (ROOT / "src" / "repro_torch" / "launch" / "dryrun.py").read_text()
+    imports = [line for line in text.splitlines()
+               if re.match(r"\s*(from|import) torch\.testing", line)]
+    assert imports and all(line.startswith("    ") for line in imports), imports
+    body = text[text.index("def _fake_world"):]
+    body = body[:body.index("\ndef ", 1)]
+    assert all(line.strip() in body for line in imports)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_72b", "falcon_mamba_7b", "recurrentgemma_9b",
+                                  "seamless_m4t_large_v2"])
+def test_serve_entry_points_keep_inference_mode_without_a_mesh(arch):
+    """The eight ``prefill`` / ``decode_step`` entry points (dense, ssm,
+    hybrid, encdec) run under ``inference_mode`` with no mesh in context:
+    their outputs are inference tensors, as the single-card serve loops
+    had them. With a mesh in context ``layers.serving`` takes ``no_grad``
+    instead (DTensor refuses inference tensors)."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models import layers as L
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import SINGLE, ServePlan, use_mesh
+
+    cfg = get_config(arch).reduced(num_layers=3 if arch.startswith("recurrent") else 2)
+    api = get_model(cfg)
+    model = api.init(cfg, 0, device="cpu")
+    batch = SyntheticPipeline(cfg, 8, 2, 0).device_batch(0, "cpu")
+    logits, cache = api.prefill(model, batch, cfg, SINGLE, 16)
+    assert logits.is_inference()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    logits, cache = api.decode(model, tok, cache, 8, cfg, SINGLE, ServePlan())
+    assert logits.is_inference()
+
+    @L.serving
+    def modes():
+        return torch.is_inference_mode_enabled(), torch.is_grad_enabled()
+
+    assert modes() == (True, False)
+    with use_mesh(types.SimpleNamespace(mesh=torch.ones(1))):
+        assert modes() == (False, False)
+
+
 _DTENSOR_TO_WRAPPERS = """
 import os, sys, tempfile
 import torch
@@ -304,8 +359,10 @@ def test_library_name_tracks_the_sources():
 
 
 def test_selective_scan_takes_the_plain_path_only_on_the_cpu(monkeypatch):
-    """K8: a CPU tensor runs ``selective_scan_plain``; any other device
-    launches the kernel or raises, and never runs the plain version."""
+    """K8: a CPU tensor runs ``selective_scan_plain``; a ``meta`` tensor
+    (the dry run) gets empty outputs of the right shapes; any other
+    device launches the kernel or raises, and never runs the plain
+    version."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import selective_scan as ssk
 
@@ -319,8 +376,8 @@ def test_selective_scan_takes_the_plain_path_only_on_the_cpu(monkeypatch):
     assert plain == [torch.device("cpu")] and not launched
     assert torch.allclose(y, torch.zeros(1, 3, 4))
     meta = [a.to("meta") for a in args]
-    with pytest.raises(ValueError, match="CUDA device or the CPU"):
-        ssk.selective_scan(*meta)
+    y, h = ssk.selective_scan(*meta, h0=torch.ones(1, 4, 8, device="meta"), return_state=True)
+    assert (y.device.type, y.shape, h.shape) == ("meta", (1, 3, 4), (1, 4, 8))
     assert plain == [torch.device("cpu")] and not launched
 
 

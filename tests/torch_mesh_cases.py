@@ -4,10 +4,13 @@ tests/test_torch_mesh_families.py: 4 gloo rank processes on a 2 x 2 mesh
 and write their measurements for the tests to hold.
 
 ``run_ranks`` converts the JAX package's ``init_lm`` weights of each
-asked id (f32) and, when asked, the reference's unsharded decode on the
+asked id (f32), runs the reference's prefill and decodes of the serve
+ids (``_jax_serve``) and, when asked, its unsharded decode on the
 ``DECODE_CASES``; the ranks then run, per id, one f32 train step on the
-mesh against the port's single-device step, the CORE save/restore of a
-``Trainer(mesh=...)`` and the sequence-sharded decode."""
+mesh against the port's single-device step, the prefill and decodes on
+the mesh against the port's single-device calls and the reference's,
+the CORE save/restore of a ``Trainer(mesh=...)`` and the
+sequence-sharded decode."""
 
 from __future__ import annotations
 
@@ -33,6 +36,15 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 DECODE_CASES = [(w, b, plan, pos) for w in (None, 64) for b, plan in ((1, "both"), (2, "model"))
                 for pos in (40, 150)]
 CACHE_LEN = 128
+# the single-device serving twins' float32 tolerance (rtol = atol), and the
+# share of a bf16 cache leaf that may be one-ulp neighbours of the
+# reference's values (torch_model_cases.F32_TOL, FLIP_SHARE)
+F32_TOL, FLIP_SHARE = 1e-4, 1e-3
+
+
+# ids run with other than reduced()'s sizes: granite with 3 experts, which
+# tp = 2 does not divide, so each expert's hidden dim is on tp instead
+VARIANTS = {"granite_moe_3b_a800m@ff": ("granite_moe_3b_a800m", {"num_experts": 3})}
 
 
 def layers_of(arch: str) -> int:
@@ -52,7 +64,7 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def train_case(arch, layers, tree, mesh):
+def train_case(arch, layers, tree, mesh, over=None):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.launch.mesh import mesh_context
@@ -63,7 +75,7 @@ def train_case(arch, layers, tree, mesh):
     from repro_torch.train import train_step as ts
     from repro_torch.train.loop import LoopConfig, Trainer
 
-    cfg = get_config(arch).reduced(num_layers=layers)
+    cfg = get_config(arch).reduced(num_layers=layers, **(over or {}))
     api = get_model(cfg)
     oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
     batch = SyntheticPipeline(cfg, 32, 4, 0).device_batch(0, "cpu")
@@ -104,6 +116,8 @@ def train_case(arch, layers, tree, mesh):
         "loss": float(loss.full_tensor()), "ref_loss": float(ref_loss),
         "step_loss": float(m["loss"]), "ref_step_loss": float(ref_m["loss"]),
         "grad_rel": max(rel(g.full_tensor(), r) for g, r in zip(grads, ref_grads)),
+        "grad_rel_by_leaf": {name: rel(g.full_tensor(), r) for (name, _), g, r in
+                             zip(ref.params.named_parameters(), grads, ref_grads)},
         "param_abs": max(float((p - r).abs().max()) for p, r in zip(new_params, ref_params)),
         "lr": oc.lr,
         "grad_norm_rel": abs(float(m["grad_norm"]) / float(ref_m["grad_norm"]) - 1),
@@ -111,6 +125,103 @@ def train_case(arch, layers, tree, mesh):
                        for p in new.params.parameters()),
         "leaves": len(ref_params),
     }
+
+
+def bf16_ulps(got, want):
+    # max |got - want| over bf16 want beyond the f32 tolerance (1e-5 of
+    # max |want|: the value before its rounding), in units of each
+    # element's bf16 spacing (8 bits of precision: 2^(e - 8) for |want|
+    # in [2^(e-1), 2^e)); at most 1 when each element is the rounding of
+    # a value within the f32 tolerance
+    w = want.float()
+    _, e = torch.frexp(w)
+    over = ((got.float() - w).abs() - 1e-5 * w.abs().max()).clamp(min=0)
+    return float((over / torch.ldexp(torch.ones_like(w), e - 8)).max())
+
+
+def vs_jax(got, want, tol):
+    # the single-device twins' check (torch_model_cases.assert_f32_close):
+    # (elements beyond rtol = atol = tol, those of a bf16 leaf that are
+    # one-ulp neighbours of the reference's value, as a share of the leaf)
+    g, w = got.float(), torch.from_numpy(want)
+    bad = (g - w).abs() > tol + tol * w.abs()
+    flips = 0
+    if got.dtype == torch.bfloat16:
+        adj = (got.view(torch.int16).int() - w.to(torch.bfloat16).view(torch.int16).int()).abs() == 1
+        flips = int((bad & adj).sum())
+        bad &= ~adj
+    return int(bad.sum()), flips / g.numel()
+
+
+def serve_case(arch, layers, tree, mesh, jax_run, tol):
+    # the prefill and two greedy decodes with DTensor parameters, batch,
+    # tokens and caches, against the same calls on one device and against
+    # the JAX package's (``jax_run``: its prefill, the greedy tokens of
+    # its logits, and its decodes from its prefill cache cast to f32, as
+    # the single-device twins run them); each call on the mesh takes the
+    # unsharded run's inputs (its cache laid out by cache_specs), and the
+    # port's decodes start from the reference's prefill cache in f32 and
+    # take its tokens. The dense and window caches are bf16, so an f32
+    # sum in another order may round a written element to its neighbour:
+    # the prefill's cache is held to one bf16 spacing of the unsharded run
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline, batch_specs
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import convert
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.shardings import (SINGLE, P, ServePlan, axes_for_mesh, distribute,
+                                              make_serve_plan)
+    from repro_torch.models.stack import tree_map, tree_paths
+
+    cfg = get_config(arch).reduced(num_layers=layers)
+    api = get_model(cfg)
+    ax = axes_for_mesh(mesh)
+    b, s, cache_len = 4, 16, 32
+    batch = SyntheticPipeline(cfg, s, b, 0).device_batch(0, "cpu")
+    batch.pop("labels")
+    ref = convert.from_jax(tree, cfg, device="cpu", dtype=torch.float32)
+    model = convert.from_jax(tree, cfg, device="cpu", dtype=torch.float32)
+    convert.distribute_params(model, api.specs(cfg, ax), mesh)
+    plan = make_serve_plan(cfg, ax, b, cache_len)
+    specs, cspecs = batch_specs(cfg, ax), api.cache_specs(cfg, ax, b, plan)
+    out = {"logits_rel": [], "cache_f32_rel": 0.0, "cache_bf16_ulps": 0.0, "jax_bad": 0,
+           "jax_flip_share": 0.0, "jax_logits_rel": []}
+
+    def hold(got_logits, got_cache, want_logits, want_cache, jax_logits, jax_cache):
+        got_logits = got_logits.full_tensor()
+        out["logits_rel"].append(rel(got_logits, want_logits))
+        out["jax_logits_rel"].append(rel(got_logits, torch.from_numpy(jax_logits)))
+        got_leaves, jax_leaves = tree_paths(got_cache), tree_paths(jax_cache)
+        pairs = [(got_logits, jax_logits)]
+        for path, w in tree_paths(want_cache).items():
+            g = got_leaves[path].full_tensor()
+            pairs.append((g, jax_leaves[path]))
+            if w.dtype == torch.bfloat16:
+                out["cache_bf16_ulps"] = max(out["cache_bf16_ulps"], bf16_ulps(g, w))
+            else:
+                out["cache_f32_rel"] = max(out["cache_f32_rel"], rel(g, w))
+        for g, j in pairs:
+            bad, share = vs_jax(g, j, tol)
+            out["jax_bad"] += bad
+            out["jax_flip_share"] = max(out["jax_flip_share"], share)
+
+    logits, cache = api.prefill(ref, batch, cfg, SINGLE, cache_len)
+    with mesh_context(mesh):
+        got = api.prefill(model, {k: distribute(v, specs[k], mesh) for k, v in batch.items()},
+                          cfg, ax, cache_len)
+    hold(*got, logits, cache, *jax_run["prefill"])
+    cache = tree_map(lambda a: torch.from_numpy(a), jax_run["prefill"][1])
+    for i, (tok, jax_step) in enumerate(zip(jax_run["tokens"], jax_run["decode"])):
+        tok = torch.from_numpy(tok)
+        with mesh_context(mesh):
+            got = api.decode(model, distribute(tok, P(plan.batch_axes, None), mesh),
+                             tree_map(lambda sp, x: distribute(x, sp, mesh), cspecs, cache),
+                             s + i, cfg, ax, plan)
+        logits, cache = api.decode(ref, tok, cache, s + i, cfg, SINGLE, ServePlan())
+        hold(*got, logits, cache, *jax_step)
+    out["finite"] = bool(torch.isfinite(logits).all())
+    out["plan"] = [plan.batch_axes, plan.seq_axes, plan.kv_axes]
+    return out
 
 
 def ckpt_case(mesh, rank):
@@ -174,8 +285,12 @@ def run(rank, world, rdv, inputs, out):
         with open(inputs, "rb") as f:
             data = pickle.load(f)
         mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
-        res = {"train": {a: train_case(a, n, tree, mesh)
-                         for a, (n, tree) in data["trees"].items()},
+        res = {"train": {k: train_case(a, n, tree, mesh, over)
+                         for k, (a, n, over, tree) in data["trees"].items()
+                         if k in data["train"]},
+               "serve": {k: serve_case(a, n, tree, mesh, data["jax_serve"][k], data["f32_tol"])
+                         for k, (a, n, over, tree) in data["trees"].items()
+                         if k in data["serve"]},
                "ckpt": ckpt_case(mesh, rank) if data["ckpt"] else None,
                "decode": [decode_case(c, mesh) for c in data["decode"]]}
         if rank == 0:
@@ -219,6 +334,41 @@ def _decode_inputs():
     return out
 
 
+def _jax_serve(arch: str, cfg_j, tree) -> dict:
+    """The JAX package's prefill of ``serve_case``'s batch (the port's
+    ``SyntheticPipeline``, 4 x 16 tokens, cache 32) and two greedy decodes
+    from its prefill cache cast to f32, as tests/test_torch_models.py runs
+    them (``torch_model_cases.reference``: the encdec op by op); every
+    array as f32 numpy, the tokens int32."""
+    import torch_model_cases as C
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+
+    b, s, cache_len = 4, 16, 32
+    batch = SyntheticPipeline(get_config(arch).reduced(num_layers=cfg_j.num_layers), s, b,
+                              0).batch_at(0)
+    batch.pop("labels")
+    jbatch = {k: jnp.asarray(v.float().numpy(), jnp.bfloat16) if hasattr(v, "float")
+              else jnp.asarray(v) for k, v in batch.items()}
+    api_j = jax_get_model(cfg_j)
+    f32 = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float32), t)  # noqa: E731
+    with C.reference(cfg_j, "float32") as run:
+        jprefill = run(lambda p, b: api_j.prefill(p, b, cfg_j, JSINGLE, cache_len))
+        jdecode = run(lambda p, t, c, pos: api_j.decode(p, t, c, pos, cfg_j, JSINGLE,
+                                                         JServePlan()))
+        params = jax.tree.map(jnp.asarray, tree)
+        logits, cache = jprefill(params, jbatch)
+        cache = jax.tree.map(lambda a: a.astype(jnp.float32), cache)
+        out = {"prefill": (f32(logits), f32(cache)), "tokens": [], "decode": []}
+        for i in range(2):
+            tok = np.array(jnp.argmax(logits, axis=-1), np.int32)[:, None]
+            logits, cache = jdecode(params, jnp.asarray(tok), cache, jnp.asarray(s + i))
+            out["tokens"].append(tok)
+            out["decode"].append((f32(logits), f32(cache)))
+    return out
+
+
 def hold_train_step(r: dict) -> None:
     """The tolerances of the sharded train step: the loss within 1e-5
     relative, every gradient leaf within 1e-4 of its max |ref|, the new
@@ -236,16 +386,26 @@ def hold_train_step(r: dict) -> None:
     assert r["sharded"] > r["leaves"] // 2, r
 
 
-def run_ranks(tmp: pathlib.Path, archs=(), ckpt: bool = False, decode: bool = False) -> dict:
-    """Spawn the 4 ranks on ``archs``' train steps (and the checkpoint and
-    decode cases when asked); returns their measurements."""
+def run_ranks(tmp: pathlib.Path, archs=(), ckpt: bool = False, decode: bool = False,
+              serve=()) -> dict:
+    """Spawn the 4 ranks on ``archs``' train steps and ``serve``'s
+    prefill and decodes (and the checkpoint and decode cases when
+    asked); returns their measurements."""
     trees = {}
-    for arch in archs:
-        cfg = jax_get_config(arch).reduced(num_layers=layers_of(arch))
-        trees[arch] = (layers_of(arch), _np(jax_get_model(cfg).init(cfg, jax.random.PRNGKey(0))))
+    for key in (*archs, *serve):
+        arch, over = VARIANTS.get(key, (key, {}))
+        cfg = jax_get_config(arch).reduced(num_layers=layers_of(arch), **over)
+        trees[key] = (arch, layers_of(arch), over,
+                      _np(jax_get_model(cfg).init(cfg, jax.random.PRNGKey(0))))
+    jax_serve = {}
+    for key in serve:
+        arch, _, _, tree = trees[key]
+        jax_serve[key] = _jax_serve(arch, jax_get_config(arch).reduced(
+            num_layers=layers_of(arch)), tree)
     inputs, out, script = tmp / "inputs.pkl", tmp / "results.json", tmp / "mesh_ranks.py"
     with open(inputs, "wb") as f:
-        pickle.dump({"trees": trees, "ckpt": ckpt,
+        pickle.dump({"trees": trees, "ckpt": ckpt, "train": list(archs), "serve": list(serve),
+                     "jax_serve": jax_serve, "f32_tol": F32_TOL,
                      "decode": _decode_inputs() if decode else []}, f)
     script.write_text(SCRIPT)
     r = subprocess.run(

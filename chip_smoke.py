@@ -188,8 +188,13 @@ Phases, in order; any failure raises and exits non-zero:
    2 layers, f32, the prefill of 1 x 128 tokens (K8 at the kernels
    line's (1, 128, 8192, 16)) and two greedy decodes against the same
    model unsharded (logits within 1e-5 of max |ref|), and olmoe's loss and
-   gradients on the mesh (1e-5 relative, 1e-4 of each leaf's max). Then
-   the process group is destroyed.
+   gradients on the mesh (1e-5 relative, 1e-4 of each leaf's max); (d)
+   12(a) again with the int8 second moment (``OptConfig(quantize_v=True)``:
+   the (q, scale) leaves replicated DTensors, each rank updating the whole
+   v from the whole gradient), held against the unsharded quantize_v
+   ``Trainer`` (bit-equal, else the floats within 1e-5 and q within 1),
+   its step walls and peak memory beside 12(a)'s. Then the process group
+   is destroyed.
 13. the dry run (``repro_torch.launch.dryrun``), each cell a process of
    its own, all started together: (a) on a fake world of 256 ranks, a
    32 x 8 mesh (32 nodes of 8 NVLink-joined cards), falcon-mamba-7b's
@@ -202,6 +207,16 @@ Phases, in order; any failure raises and exits non-zero:
    of ``max_memory_allocated``; then the per-rank memory budget the card
    gives (``total_memory`` less what lies outside the allocator and the
    allocator's headroom).
+14. the examples: each ``examples/torch_*.py`` through its ``main(argv)``
+   on the card, its output logged: quickstart (``verified=True`` four
+   times), degraded_read (``ok=True`` three times), repair_scheduling,
+   train_tiny_lm at 30 steps (``== OK`` after the degraded restore,
+   resumed to step 60), and the gateway example in its eight modes
+   (default, ``--tenants``, ``--scenario``, ``--graybox``, ``--bakeoff``,
+   ``--writes``, ``--shards 4``, ``--trace`` to a temporary file that
+   ``repro_torch.obs.validate_file`` reads): every request served, zero
+   wrong bytes, the audits and durability clean; each wall logged, and
+   K1-K4 launched on the gateway's windows.
 
 ``--tiles-only`` stops after phase 1 and the tile kernels' times (no
 check, no result line). ``--scan-only`` builds, prints ptxas's register
@@ -216,14 +231,16 @@ stops (no result line).
 ``--dense-only`` the same for phase 9, ``--moe-only`` for phase 10;
 ``--hybrid-only`` builds and runs phase 11(a) and 11(b) for the hybrid
 id, ``--encdec-only`` phase 11(a) and 11(c) for the encdec id;
-``--mesh-only`` builds and runs phase 12; ``--dryrun-only`` phase 13. The
+``--mesh-only`` builds and runs phase 12; ``--dryrun-only`` phase 13;
+``--examples-only`` phase 14. The
 script imports ``repro_torch`` from the ``src/`` beside it, so a copy of
 it placed in another checkout times that checkout's kernels.
 
 The last three lines are the kernels' JSON record (each kernel's
-``launches`` from the paths that run it: phases 4, 5 and 7 for K1-K4
+``launches`` from the paths that run it: phases 4, 5, 7 and 14 for K1-K4
 (``launches_by_phase``), the codec
-path for K5 and K7, phase 5 for K6 and K7 batched, phase 6(c)'s prefill
+path for K5 and K7, phase 5 for K6 and K7 batched (each with phase 14's
+count beside it), phase 6(c)'s prefill
 and serve, phase 11(b)'s 32k prefill, phase 12(c)'s serves and phase
 13(b)'s real prefill for K8, by phase, with K8's
 times at the hybrid's shapes under ``hybrid``), the card's name and
@@ -2499,7 +2516,8 @@ def hybrid_encdec_paths(np, torch, seed: int, families=("hybrid", "encdec")) -> 
     return out
 
 
-def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> None:
+def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None,
+                          quantize: bool = False, plain: dict | None = None) -> dict:
     """Phase 12(a): falcon-mamba-7b at full width, cut to 2 layers as in
     8(b), by ``Trainer(mesh=...)`` on the one-rank NCCL mesh (1, 1): the
     state laid out as DTensors by ``state_specs``, each step under
@@ -2510,7 +2528,14 @@ def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> 
     losses and the step-3 state are held against the unsharded
     ``Trainer``'s steps on the card from the same seed (bit-equal, else
     within 1e-5). One sharded step under the
-    profiler gives the busy share. K8 is never launched."""
+    profiler gives the busy share. K8 is never launched.
+
+    With ``quantize``, phase 12(d): the same with
+    ``OptConfig(quantize_v=True)``, the int8 second moment's (q, scale)
+    leaves replicated DTensors, held against the unsharded quantize_v
+    ``Trainer`` (bit-equal, else the floats within 1e-5 and q within 1);
+    its step walls and peak memory are logged beside ``plain``'s, 12(a)'s
+    record. Returns {"walls", "peak"}."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -2528,7 +2553,8 @@ def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> 
     steps = 3
     lc = LoopConfig(steps=steps, ckpt_every=2, log_every=1, seq_len=256, global_batch=8,
                     seed=seed, num_nodes=100)
-    oc = opt.OptConfig(lr=3e-4, warmup_steps=1, decay_steps=steps)
+    oc = opt.OptConfig(lr=3e-4, warmup_steps=1, decay_steps=steps, quantize_v=quantize)
+    tag = "12(d)" if quantize else "12(a)"
 
     def flat(st):
         tree = ts.TrainState(convert.stacked_tree(st.params), st.opt, st.step)
@@ -2554,7 +2580,7 @@ def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> 
     run_s = time.perf_counter() - t0
     man = tr.ckpt.manifests[2]
     placed = sum(type(p).__name__ == "DTensor" for p in state.params.parameters())
-    log(f"phase 12(a) falcon-mamba-7b {cfg.num_layers} layers on the {tuple(mesh.mesh.shape)} "
+    log(f"phase {tag} falcon-mamba-7b {cfg.num_layers} layers on the {tuple(mesh.mesh.shape)} "
         f"{mesh.device_type} mesh {mesh.mesh_dim_names}: {placed} DTensor parameters; "
         f"Trainer.run to step 2 {run_s:.3f} s with the save ({man.total_bytes} bytes, "
         f"save wall {man.save_seconds:.6f} s)")
@@ -2569,11 +2595,11 @@ def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> 
     restore_s = time.perf_counter() - t0
     back = flat(restored)
     equal = len(back) == len(saved) and all(_bits_equal(torch, a, b) for a, b in zip(saved, back))
-    log(f"phase 12(a) restore_latest with nodes {victims} down: wall {restore_s:.6f} s, "
+    log(f"phase {tag} restore_latest with nodes {victims} down: wall {restore_s:.6f} s, "
         f"{tr.last_restore_report.blocks_fetched} blocks fetched; {len(saved)} leaves "
         f"bit-equal {equal}")
     if not equal:
-        raise AssertionError("phase 12(a): the restored state differs from the saved one")
+        raise AssertionError(f"phase {tag}: the restored state differs from the saved one")
     del saved, back, state
     # step 3 from the restored state, by the step function (Trainer.run
     # would save again at the end of its run)
@@ -2589,18 +2615,29 @@ def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> 
     walls = [rec["sec"] for rec in tr.metrics_log]
     got = flat(restored)
     bit_equal = all(_bits_equal(torch, a, b) for a, b in zip(got, want))
-    worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    # the floats' largest difference; the int8 q's, in steps of its scale
+    worst, q_worst = 0.0, 0
+    for a, b in zip(got, want):
+        diff = (a.float() - b.float()).abs().max()
+        if a.dtype == torch.int8:
+            q_worst = max(q_worst, int(diff))
+        else:
+            worst = max(worst, float(diff))
     loss_rel = max(abs(a / b - 1) for a, b in zip(losses, ref_losses))
     for rec in tr.metrics_log:
-        log(f"phase 12(a) step {rec['step']}: wall {rec['sec']:.6f} s, loss {rec['loss']:.6f}, "
+        log(f"phase {tag} step {rec['step']}: wall {rec['sec']:.6f} s, loss {rec['loss']:.6f}, "
             f"grad norm {rec['grad_norm']:.6f}")
     beside = (f"8(b)'s median {wall_8b:.6f} s in this run" if wall_8b is not None
               else "8(b) not run in this call")
-    log(f"phase 12(a) step walls {walls} ({beside}); max_memory_allocated {peak} bytes; losses {losses} vs unsharded "
+    if plain is not None:
+        beside += f"; 12(a)'s {plain['walls']}, its max_memory_allocated {plain['peak']} bytes"
+    log(f"phase {tag} step walls {walls} ({beside}); max_memory_allocated {peak} bytes; losses {losses} vs unsharded "
         f"{ref_losses} (max relative {loss_rel}); step-3 state vs unsharded: bit-equal "
-        f"{bit_equal}, max |diff| {worst} over {len(got)} leaves")
-    if len(losses) != steps or loss_rel > 1e-5 or worst > 1e-5 or len(got) != len(want):
-        raise AssertionError("phase 12(a): the sharded Trainer differs from the unsharded one")
+        f"{bit_equal}, max |diff| {worst} over {len(got)} leaves"
+        + (f", int8 q max |diff| {q_worst}" if quantize else ""))
+    if (len(losses) != steps or loss_rel > 1e-5 or worst > 1e-5 or q_worst > 1
+            or len(got) != len(want)):
+        raise AssertionError(f"phase {tag}: the sharded Trainer differs from the unsharded one")
     batch = tr.pipeline.device_batch(steps, tr.dev, mesh, tr.ax)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2609,14 +2646,15 @@ def mesh_train_full_width(np, torch, seed: int, mesh, wall_8b: float | None) -> 
             restored, metrics = tr.step_fn(restored, batch)
         float(metrics["loss"])
         prof_s = time.perf_counter() - t0
-    device_breakdown(prof, "phase 12(a) sharded train step 4 (profiled)", prof_s)
+    device_breakdown(prof, f"phase {tag} sharded train step 4 (profiled)", prof_s)
     k8 = _build.LAUNCHES["selective_scan"]
-    log(f"phase 12(a) K8 launches {k8}")
+    log(f"phase {tag} K8 launches {k8}")
     if k8:
-        raise AssertionError(f"phase 12(a): training launched K8 {k8} times")
+        raise AssertionError(f"phase {tag}: training launched K8 {k8} times")
     del restored, tr, prof
     gc.collect()
     torch.cuda.empty_cache()
+    return {"walls": walls, "peak": peak}
 
 
 def mesh_decode(np, torch, seed: int, mesh) -> None:
@@ -2660,8 +2698,8 @@ def mesh_decode(np, torch, seed: int, mesh) -> None:
 
 def mesh_paths(np, torch, seed: int, wall_8b: float | None = None) -> int:
     """Phase 12: a one-rank NCCL mesh (1, 1) on cuda:0 through a file
-    rendezvous; 12(a), 12(b) and 12(c) on it; then the process group is
-    destroyed. The card machine has one H100, and NCCL takes one rank per
+    rendezvous; 12(a), 12(b), 12(c) and 12(d) on it; then the process
+    group is destroyed. The card machine has one H100, and NCCL takes one rank per
     card: the collectives run in the CPU tests (4 and 8 gloo ranks); this
     phase proves the DTensor path through the card. The XOR butterfly is
     not run: on one rank it has no round. Returns K8's launches (12(c))."""
@@ -2676,7 +2714,7 @@ def mesh_paths(np, torch, seed: int, wall_8b: float | None = None) -> int:
         try:
             mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
             t0 = time.perf_counter()
-            mesh_train_full_width(np, torch, seed, mesh, wall_8b)
+            plain = mesh_train_full_width(np, torch, seed, mesh, wall_8b)
             log(f"phase 12(a) done in {time.perf_counter() - t0:.1f} s")
             t0 = time.perf_counter()
             mesh_decode(np, torch, seed, mesh)
@@ -2684,6 +2722,9 @@ def mesh_paths(np, torch, seed: int, wall_8b: float | None = None) -> int:
             t0 = time.perf_counter()
             k8 = mesh_serve(np, torch, seed, mesh)
             log(f"phase 12(c) done in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            mesh_train_full_width(np, torch, seed, mesh, wall_8b, quantize=True, plain=plain)
+            log(f"phase 12(d) done in {time.perf_counter() - t0:.1f} s")
         finally:
             dist.destroy_process_group()
     return k8
@@ -2969,6 +3010,95 @@ def dryrun_paths(np, torch, seed: int) -> int:
     return real["prefill_32k_b1"]["k8"]
 
 
+# phase 14: each torch example's main(argv) on the card, the lines its
+# output must hold and how many times each (once a run the example makes:
+# quickstart verifies four repairs, degraded_read three reads, the
+# scenario and writes demos serve twice)
+EXAMPLE_RUNS = (
+    ("torch_quickstart", [], ("verified=True",), 4),
+    ("torch_degraded_read", [], ("ok=True",), 3),
+    ("torch_repair_scheduling", [], ("--- Step pattern", "--- Plus pattern",
+                                     "--- random p=0.12 pattern"), 1),
+    ("torch_train_tiny_lm", ["--steps", "30"], ("== OK", "resumed to step 60"), 1),
+    ("torch_gateway_serving", [], ("served 1200/1200 requests",), 1),
+    ("torch_gateway_serving", ["--tenants"], ("premium:", "batch:"), 1),
+    ("torch_gateway_serving", ["--scenario"],
+     ("durability        0 blocks lost, 0 unreadable, 0 still missing",), 2),
+    ("torch_gateway_serving", ["--graybox"], ("; 0 wrong bytes served)",
+                                              "0 blocks lost, 0 unreadable, 0 still missing"), 1),
+    ("torch_gateway_serving", ["--bakeoff"], ("CORE repair traffic = 0.50x RS",), 1),
+    ("torch_gateway_serving", ["--writes"], ("0 stale, 0 corrupt",
+                                             "0 wrong extents, 0 unreadable"), 2),
+    ("torch_gateway_serving", ["--shards", "4"], ("byte-identical",
+                                                  "0 blocks lost, 0 unreadable"), 1),
+    ("torch_gateway_serving", ["--trace"], ("served 1200/1200 requests",), 1),
+)
+# words of a line that fail a run wherever they appear
+EXAMPLE_FAULTS = ("verified=False", "ok=False", "CORRUPT", "MISMATCH")
+
+
+def examples_paths(torch) -> dict[str, int]:
+    """Phase 14: every torch example (``examples/torch_*.py``) through its
+    ``main(argv)`` on the card: the three storage examples, train_tiny_lm
+    at 30 steps, the gateway example in its eight modes (``--trace`` to a
+    temporary file, which ``repro_torch.obs.validate_file`` checks). Each
+    output is logged with its wall and must hold its checks
+    (``EXAMPLE_RUNS``, and no ``EXAMPLE_FAULTS``). The launch counts are
+    set to 0 before the first example and K1-K4 must have launched; the
+    gateway's autotuner shares phase 5's cache file. Returns the
+    kernels' launches of the phase."""
+    import contextlib
+    import importlib.util
+    import io
+    import tempfile
+
+    from repro_torch.kernels import _build, autotune
+    from repro_torch.obs import validate_file
+
+    autotune.set_cache_path(ROOT / "build" / "chip_smoke_autotune.json")
+    _build.reset_launches()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-trace-") as tmp:
+        for name, args, checks, times in EXAMPLE_RUNS:
+            path = ROOT / "examples" / f"{name}.py"
+            spec = importlib.util.spec_from_file_location(name, path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            trace = str(pathlib.Path(tmp) / "trace.json") if args == ["--trace"] else None
+            argv = args + [trace] if trace else args
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out = buf.getvalue()
+            label = " ".join([name, *args])
+            for line in out.splitlines():
+                log(f"phase 14 | {line}")
+            missing = [c for c in checks if out.count(c) < times]
+            faults = [w for w in EXAMPLE_FAULTS if w in out]
+            if trace is not None:
+                log(f"phase 14 {label}: {validate_file(trace)} chrome-trace events valid")
+            log(f"phase 14 {label}: wall {wall:.6f} s")
+            if missing or faults:
+                raise AssertionError(f"phase 14 {label}: checks missing {missing}, "
+                                     f"faults {faults}")
+    launches = dict(_build.LAUNCHES)
+    log(f"phase 14: {len(EXAMPLE_RUNS)} example runs in {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {launches}")
+    # the gateway's GET and PUT windows run the tile kernels; the storage
+    # and training examples' codec (CoreCodec, BlockFixer, the CORE
+    # checkpoint) is plain torch on the card, as the reference's is jnp,
+    # so K5 and K7 are counted but not required
+    used = {"ragged_gf256_tiles", "ragged_xor_tiles", "ragged_gf256_encode_tiles",
+            "ragged_xor_encode_tiles"}
+    idle = sorted(k for k in used if not launches[k])
+    if idle:
+        raise AssertionError(f"phase 14: the examples never launched {idle}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3002,6 +3132,9 @@ def main() -> int:
                     help="build, run phase 13 (the dry run on a fake world, and its "
                          "prediction held against the card's real steps), and stop (no other "
                          "phase, no result line)")
+    ap.add_argument("--examples-only", action="store_true",
+                    help="build, run phase 14 (every torch example on the card), and stop (no "
+                         "other phase, no result line)")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, run phase 12 (the one-rank NCCL mesh: sharded training and "
                          "the sequence-sharded decode), and stop (no other phase, no result "
@@ -3092,6 +3225,11 @@ def main() -> int:
         log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
         log(smi)
         return 0
+    if args.examples_only:
+        examples_paths(torch)
+        log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        return 0
     rows = check_kernels(np, torch, args.seed)
     matrix_rows = check_matrix_kernels(np, torch, args.seed)
     codec = codec_path(np, torch, args.seed)
@@ -3122,24 +3260,32 @@ def main() -> int:
     log(f"phase 12 done at {time.perf_counter() - t_start:.1f} s")
     dryrun_k8 = dryrun_paths(np, torch, args.seed)
     log(f"phase 13 done at {time.perf_counter() - t_start:.1f} s")
+    examples = examples_paths(torch)
+    log(f"phase 14 done at {time.perf_counter() - t_start:.1f} s")
     # K8 runs on phase 6(c)'s prefill and serve, phase 11(b)'s prefill,
     # the mesh serves of 12(c) and the real prefill of 13(b)
     scan_row["launches_by_phase"] = {"6": scan_row["launches"], "11": hybrid["launches"],
                                      "12": mesh_k8, "13": dryrun_k8}
     scan_row["launches"] = sum(scan_row["launches_by_phase"].values())
     scan_row["hybrid"] = hybrid["k8"]
-    # each kernel's launches come from the path that runs it
-    source = {"gf256_matmul_planes": codec, "xor_parity": codec,
-              "gf256_matmul_planes_batched": bucketed, "xor_parity_batched": bucketed}
+    # each kernel's launches come from the paths that run it: K5 and K7 on
+    # the codec path, K6 and K7 batched on phase 5's bucketed serve, and
+    # every one of them on phase 14's examples
+    source = {"gf256_matmul_planes": ("2", codec), "xor_parity": ("2", codec),
+              "gf256_matmul_planes_batched": ("5", bucketed),
+              "xor_parity_batched": ("5", bucketed)}
     for row in matrix_rows:
-        row["launches"] = source[row["name"]][row["name"]]
-    # the tile kernels run on the serves of phases 4 and 5 and on the
-    # scenario runs of phase 7: their count is the sum
+        phase, counts = source[row["name"]]
+        row["launches_by_phase"] = {phase: counts[row["name"]], "14": examples[row["name"]]}
+        row["launches"] = sum(row["launches_by_phase"].values())
+    # the tile kernels run on the serves of phases 4 and 5, on the
+    # scenario runs of phase 7 and on phase 14's gateway examples: their
+    # count is the sum
     for row in rows:
         name = row["name"]
         row["launches_by_phase"] = {
             "4": ragged[name], "5": bucketed[name],
-            "7": storage["7a"][name] + storage["7b"][name],
+            "7": storage["7a"][name] + storage["7b"][name], "14": examples[name],
         }
         row["launches"] = sum(row["launches_by_phase"].values())
     log(json.dumps({"kernels": rows + matrix_rows + [scan_row]}))

@@ -17,7 +17,8 @@ The ranks meet through a ``file://`` rendezvous in a temporary
 directory: NCCL on the card, one rank per card (more ranks than cards
 raise ValueError), gloo with ``--device cpu``. A rank that dies fails
 the others within ``RANK_TIMEOUT_S`` seconds. ``--quantize-v`` on a mesh
-raises NotImplementedError. ``--devices`` alone builds no mesh, as in
+keeps the int8 second moment replicated on every rank, as the
+reference's ``opt_specs`` does. ``--devices`` alone builds no mesh, as in
 the reference. Only rank 0 prints; the run ends with ``done at step N;
 final loss X``.
 """
@@ -68,8 +69,6 @@ def main(argv=None) -> int:
         if world > torch.cuda.device_count():
             raise ValueError(f"{world} ranks need {world} cards (NCCL takes one rank per "
                              f"card); this host has {torch.cuda.device_count()}")
-    if args.quantize_v:
-        raise NotImplementedError("--quantize-v on a mesh is not ported (ROADMAP queue 1)")
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory(prefix="repro-rdv-") as tmp:

@@ -19,8 +19,10 @@ state out as a DTensor by ``train_step.state_specs``, each step's batch
 by ``data.pipeline.batch_specs``, and the step runs under
 ``launch.mesh.mesh_context``. Here the port differs from the reference,
 whose one process holds global arrays: on ``save`` every rank gathers
-each leaf (``full_tensor``) and rank 0 alone encodes and stores it, so
-the bytes are the reference's for the same global state; on
+each leaf (``full_tensor``; a replicated leaf, such as the int8 second
+moment's (q, scale) with ``OptConfig(quantize_v=True)``, is a local
+read) and rank 0 alone encodes and stores it, so the bytes are the
+reference's for the same global state; on
 ``restore_latest`` rank 0 decodes and the state is laid out again from
 rank 0's values. The store is rank 0's; only rank 0 prints.
 """
@@ -73,9 +75,6 @@ class Trainer:
         self.dev = resolve_device(self.device)
         self.rank = 0
         if self.mesh is not None:
-            if self.oc.quantize_v:
-                raise NotImplementedError(
-                    "the int8 second moment on a mesh is not ported (ROADMAP queue 1)")
             if self.mesh.device_type != self.dev.type:
                 raise ValueError(f"a {self.mesh.device_type} mesh for device {self.dev}")
             if self.dev.type == "cuda":
@@ -158,7 +157,11 @@ class Trainer:
             shape = ts.state_shape(self.cfg, self.api, self.oc)
             params = self.api.init(self.cfg, None, device=self.dev)
             params.requires_grad_(True)
-            empty = lambda t: torch.empty(t.shape, dtype=t.dtype, device=self.dev)
+            def empty(t):  # a tuple leaf: the int8 v's (q, scale)
+                if isinstance(t, tuple):
+                    return tuple(map(empty, t))
+                return torch.empty(t.shape, dtype=t.dtype, device=self.dev)
+
             restored = ts.TrainState(params, tree_map(empty, shape.opt), empty(shape.step))
             self.last_restore_report = None
         else:

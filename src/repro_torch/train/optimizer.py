@@ -147,14 +147,27 @@ def _adamw(p, g, m, vf, decays: bool, c: OptConfig, scale, lr, bc1, bc2):
     """One leaf's (or one chunk of it) new (p, m, v), v in float32;
     ``decays``: the leaf has rank >= 2."""
     g = g.to(torch.float32) * scale
+    v2 = _new_v(g, vf, c)
+    p2, m2 = _adamw_pm(p, g, m, v2, decays, c, lr, bc1, bc2)
+    return p2, m2, v2
+
+
+def _new_v(g, vf, c: OptConfig):
+    """The new second moment from the clipped f32 gradient ``g`` and the
+    old v ``vf`` (float32)."""
+    return c.b2 * vf + (1 - c.b2) * torch.square(g)
+
+
+def _adamw_pm(p, g, m, v2, decays: bool, c: OptConfig, lr, bc1, bc2):
+    """``_adamw``'s new (p, m) from the clipped f32 gradient ``g`` and the
+    new v ``v2``."""
     m2 = c.b1 * m + (1 - c.b1) * g
-    v2 = c.b2 * vf + (1 - c.b2) * torch.square(g)
     mhat = m2 / bc1
     vhat = v2 / bc2
     step = mhat / (torch.sqrt(vhat) + c.eps)
     decay = c.weight_decay * p.to(torch.float32) if decays else 0.0
     p2 = (p.to(torch.float32) - lr * (step + decay)).to(p.dtype)
-    return p2, m2, v2
+    return p2, m2
 
 
 @torch.no_grad()
@@ -181,37 +194,80 @@ def adamw_update_(grads: dict, state: dict, params: dict, c: OptConfig):
     ``qblock`` blocks, so no block spans two chunks). Elementwise, so
     the values are ``adamw_update``'s bit for bit. Every leaf must be
     contiguous. Returns (new_state, metrics); ``params`` holds the new
-    parameters."""
+    parameters.
+
+    On a mesh (DTensor leaves) each rank updates p and m on its own
+    shard. With ``quantize_v`` the (q, scale) leaves replicate
+    (``opt_specs``, as the reference's): every rank forms each leaf's
+    whole gradient (``full_tensor``, the one collective a replicated v
+    implies), updates the whole v from it chunk by chunk as on one
+    device, so every rank holds the same bytes, and takes its shard's
+    slice of the new v (a local slice, no communication). That costs a
+    rank, for one leaf at a time, its whole gradient and one whole f32
+    leaf (the new v): at falcon-mamba-7b's 65,024 x 4,096 embedding,
+    1.07 GB of f32 beside 0.53 GB of bf16 gradient."""
     count, gn, scale, lr, bc1, bc2 = _step_scalars(grads, state, c)
     chunk = max(c.qblock, CHUNK // c.qblock * c.qblock)
 
+    def pieces(n):
+        """(elements, v blocks) of each chunk of a flat leaf of n elements."""
+        return [(slice(i, i + chunk), slice(i // c.qblock, -(-min(i + chunk, n) // c.qblock)))
+                for i in range(0, n, chunk)]
+
+    def requantize_(v2, v, blocks):
+        q, sc = _quantize(v2, c.qblock)
+        v[0][blocks].copy_(q)
+        v[1][blocks].copy_(sc)
+
+    def whole_v_(g, v):
+        """A replicated int8 v's new value from the leaf's whole gradient:
+        q and scales overwritten, the new v returned in f32."""
+        gf = g.reshape(-1)
+        v2 = torch.empty(gf.shape, dtype=torch.float32, device=gf.device)
+        for sl, blocks in pieces(gf.numel()):
+            vf = _dequantize(v[0][blocks], v[1][blocks], v2[sl].shape, c.qblock)
+            v2[sl] = _new_v(gf[sl].to(torch.float32) * scale, vf, c)
+            requantize_(v2[sl], v, blocks)
+        return v2.view(g.shape)
+
     def upd(p, g, m, v):
-        if is_dtensor(p):  # elementwise: each rank updates its own shard
+        decays, v2 = p.dim() >= 2, None
+        if is_dtensor(p):
             if c.quantize_v:
-                raise NotImplementedError(
-                    "the int8 second moment on a mesh (ROADMAP queue 1)")
-            if tuple(g.placements) != tuple(p.placements):
-                g = g.redistribute(p.device_mesh, p.placements)
-            p, g, m, v = (t.to_local() for t in (p, g, m, v))
-        pf, gf, mf = p.view(-1), g.reshape(-1), m.view(-1)
-        for i in range(0, pf.numel(), chunk):
-            sl = slice(i, i + chunk)
-            if c.quantize_v:
-                blocks = slice(i // c.qblock, -(-min(i + chunk, pf.numel()) // c.qblock))
-                vf = _dequantize(v[0][blocks], v[1][blocks], pf[sl].shape, c.qblock)
+                g = g.full_tensor()
+                v2 = _shard_of(whole_v_(g, tuple(t.to_local() for t in v)), p).reshape(-1)
+                g = _shard_of(g, p)
             else:
-                vf = v.view(-1)[sl]
-            p2, m2, v2 = _adamw(pf[sl], gf[sl], mf[sl], vf, p.dim() >= 2, c, scale, lr,
-                                bc1, bc2)
+                if tuple(g.placements) != tuple(p.placements):
+                    g = g.redistribute(p.device_mesh, p.placements)
+                g, v = g.to_local(), v.to_local()
+            p, m = p.to_local(), m.to_local()
+        pf, gf, mf = p.view(-1), g.reshape(-1), m.view(-1)
+        for sl, blocks in pieces(pf.numel()):
+            gs = gf[sl].to(torch.float32) * scale
+            if v2 is not None:  # formed whole above
+                new = v2[sl]
+            elif c.quantize_v:
+                new = _new_v(gs, _dequantize(v[0][blocks], v[1][blocks], pf[sl].shape,
+                                             c.qblock), c)
+                requantize_(new, v, blocks)
+            else:
+                new = _new_v(gs, v.view(-1)[sl], c)
+                v.view(-1)[sl].copy_(new)
+            p2, m2 = _adamw_pm(pf[sl], gs, mf[sl], new, decays, c, lr, bc1, bc2)
             pf[sl].copy_(p2)
             mf[sl].copy_(m2)
-            if c.quantize_v:
-                q, sc = _quantize(v2, c.qblock)
-                v[0][blocks].copy_(q)
-                v[1][blocks].copy_(sc)
-            else:
-                vf.copy_(v2)
 
     tree_map(upd, params, grads, state["m"], state["v"])
     return ({"m": state["m"], "v": state["v"], "count": count},
             {"grad_norm": gn, "lr": lr})
+
+
+def _shard_of(full: torch.Tensor, like) -> torch.Tensor:
+    """The local shard, in DTensor ``like``'s layout, of ``full`` (the same
+    global value on every rank): a slice, no communication."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    rep = DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return rep.redistribute(mesh, like.placements).to_local()

@@ -16,6 +16,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the port's examples: they import only repro_torch, numpy and the
+# standard library
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def test_every_module_imports_without_jax_or_repro():
@@ -29,6 +32,10 @@ def test_every_module_imports_without_jax_or_repro():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
+        import importlib.util, pathlib
+        for path in sorted(pathlib.Path("examples").glob("torch_*.py")):
+            spec = importlib.util.spec_from_file_location(path.stem, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         leaked = sorted(
             m for m in sys.modules if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked
@@ -80,6 +87,7 @@ def test_no_jax_or_repro_import_lines():
     pattern = re.compile(r"^\s*(import|from) (jax|repro|ml_dtypes)\b", re.M)
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += EXAMPLES
     hits = [
         f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
         for p in files
@@ -172,6 +180,26 @@ def test_default_device_raises_without_cuda(name, monkeypatch):
         _entry_points()[name]()
 
 
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_degraded_read",
+                                  "torch_repair_scheduling", "torch_train_tiny_lm",
+                                  "torch_gateway_serving"])
+def test_example_default_device_raises_without_cuda(name, monkeypatch):
+    """Each torch example runs on the card unless ``--device cpu`` is
+    given (tests/test_torch_examples*.py run them so): without a card its
+    ``main`` raises before any work."""
+    import importlib.util
+
+    assert ROOT / "examples" / f"{name}.py" in EXAMPLES
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--device", "cuda"])
+
+
 @pytest.mark.parametrize("arch", ["starcoder2_15b", "pixtral_12b"])
 def test_training_a_dense_arch_waits_for_its_slice(arch):
     """Its slice has come: ``Trainer`` takes the dense and vlm ids (and
@@ -193,6 +221,7 @@ def test_no_private_torch_distributed_imports():
     pattern = re.compile(r"torch\.distributed\._\w+|from torch\.distributed import _\w+")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += EXAMPLES
     hits = [f"{p.relative_to(ROOT)}: {m.group(0)}" for p in files
             for m in pattern.finditer(p.read_text())]
     assert not hits, hits

@@ -497,13 +497,11 @@ def test_hybrid_tail_decay_rule():
 
 def test_trainer_mesh_waits_for_its_slice():
     """Its slice has come (tests/test_torch_mesh_train.py trains on a 2 x 2
-    mesh); what a mesh still refuses: a mesh of another device type than
-    the trainer's, and the int8 second moment."""
+    mesh, tests/test_torch_mesh_quantize.py with the int8 second moment);
+    what a mesh still refuses: a mesh of another device type than the
+    trainer's."""
     import types
 
     with pytest.raises(ValueError, match="cuda mesh"):
         Trainer(CFG, LoopConfig(), mesh=types.SimpleNamespace(device_type="cuda"),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 second moment"):
-        Trainer(CFG, LoopConfig(), opt.OptConfig(quantize_v=True),
-                mesh=types.SimpleNamespace(device_type="cpu"), device="cpu")

@@ -65,12 +65,12 @@ def test_launcher_trains_on_the_cpu(arch):
 
 @pytest.mark.parametrize("flags,error", [
     (["--mesh", "2x2", "--devices", "3"], ValueError),
-    (["--mesh", "2x2", "--quantize-v"], NotImplementedError),
 ])
 def test_launcher_mesh_waits_for_its_slice(flags, error):
     """Its slice has come (tests/test_torch_launch_integration.py trains
-    on a 2 x 2 mesh); what the launcher refuses before it spawns a rank:
-    a rank count other than the mesh's size, and the int8 second moment."""
+    on a 2 x 2 mesh, tests/test_torch_mesh_quantize.py with
+    ``--quantize-v``); what the launcher refuses before it spawns a rank:
+    a rank count other than the mesh's size."""
     from repro_torch.launch import train
 
     with pytest.raises(error):

@@ -14,7 +14,6 @@ sequence-sharded decode."""
 
 from __future__ import annotations
 
-import json
 import os
 import pathlib
 import pickle
@@ -53,7 +52,7 @@ def layers_of(arch: str) -> int:
 
 
 SCRIPT = r"""
-import json, os, pickle, sys, tempfile
+import os, pickle, sys, tempfile
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -64,7 +63,7 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
-def train_case(arch, layers, tree, mesh, over=None):
+def train_case(arch, layers, tree, mesh, over=None, quantize=False):
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.launch.mesh import mesh_context
@@ -77,7 +76,7 @@ def train_case(arch, layers, tree, mesh, over=None):
 
     cfg = get_config(arch).reduced(num_layers=layers, **(over or {}))
     api = get_model(cfg)
-    oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10, quantize_v=quantize)
     batch = SyntheticPipeline(cfg, 32, 4, 0).device_batch(0, "cpu")
 
     def state():
@@ -224,34 +223,137 @@ def serve_case(arch, layers, tree, mesh, jax_run, tol):
     return out
 
 
-def ckpt_case(mesh, rank):
-    from repro_torch.configs import get_config
-    from repro_torch.train import optimizer as opt
-    from repro_torch.train.loop import LoopConfig, Trainer, _gathered
-    from repro_torch.models import convert
+def host_copy(tree):
+    # every leaf's global value on every rank (a collective for a sharded
+    # leaf), copied: a replicated leaf's local tensor is its storage
+    from repro_torch.models.stack import tree_map
+    from repro_torch.train.loop import _gathered
+
+    def copy(x):
+        return tuple(map(copy, x)) if isinstance(x, tuple) else x.clone()
+
+    return tree_map(lambda x: copy(_gathered(x)), tree)
+
+
+def leaves_of(tree):
+    # tree_leaves with the int8 v's (q, scale) split in two
     from repro_torch.models.stack import tree_leaves
 
+    return [e for x in tree_leaves(tree) for e in (x if isinstance(x, tuple) else (x,))]
+
+
+def ckpt_case(mesh, rank, quantize=False):
+    # with ``quantize`` the int8 v's leaves replicate: the save on rank 0
+    # is also held byte for byte against a single-device Trainer's save of
+    # the same (gathered) state
+    from repro_torch.configs import get_config
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.loop import LoopConfig, Trainer, _gathered
+    from repro_torch.models import convert
+
     cfg = get_config("qwen2_72b").reduced(num_layers=2)
-    oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10, quantize_v=quantize)
     lc = LoopConfig(steps=2, ckpt_every=2, log_every=100, seq_len=32, global_batch=4)
     tr = Trainer(cfg, lc, oc, mesh=mesh, device="cpu")
     state = tr.run()
 
     def flat(st):
-        leaves = tree_leaves(convert.stacked_tree(st.params)) + tree_leaves(st.opt)
-        return [_gathered(x) for x in leaves] + [_gathered(st.step)]
+        return (leaves_of(host_copy(convert.stacked_tree(st.params)))
+                + leaves_of(host_copy(st.opt)) + [_gathered(st.step)])
 
     before = flat(state)
+    out = {"int8_leaves": sum(x.dtype == torch.int8 for x in before)}
+    params, opt_state = host_copy(convert.stacked_tree(state.params)), host_copy(state.opt)
     if rank == 0:
+        single = Trainer(cfg, lc, oc, device="cpu")
+        man = single.save(ts.TrainState(
+            convert.from_jax(params, cfg, device="cpu", trainable=True), opt_state,
+            _gathered(state.step)))
+        mine = tr.ckpt.manifests[2]
+        keys = [k for k in tr.store.blocks if k[0] in mine.group_ids]
+        out["save_equal"] = (man.group_ids == mine.group_ids
+                             and man.total_bytes == mine.total_bytes
+                             and len(keys) == len(single.store.blocks)
+                             and all(np.array_equal(tr.store.blocks[k], single.store.blocks[k])
+                                     for k in keys))
         tr.store.fail_nodes([0, 1])
     restored = tr.restore_latest()
     after = flat(restored)
     equal = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(before, after))
     resumed = tr.run(state=restored, until=3)
-    return {"equal": equal and len(before) == len(after), "leaves": len(before),
-            "restored_step": int(_gathered(restored.step)),
-            "resumed_step": int(_gathered(resumed.step)),
-            "losses": [r["loss"] for r in tr.metrics_log]}
+    return out | {"equal": equal and len(before) == len(after), "leaves": len(before),
+                  "restored_step": int(_gathered(restored.step)),
+                  "resumed_step": int(_gathered(resumed.step)),
+                  "losses": [r["loss"] for r in tr.metrics_log]}
+
+
+def quant_case(arch, layers, tree, mesh):
+    # two steps of the donated ``adamw_update_`` with the int8 v on the
+    # mesh against the pure ``adamw_update`` on the gathered gradients,
+    # state and parameters: every leaf's bits (p, m, q, scale), whether
+    # the replicated q and scales are the same bytes on every rank, and
+    # the second step's inputs and outputs as numpy for the JAX package's
+    # update. The clip norm is out of reach, so the clip scale is exactly
+    # 1: the global norm is the one value a sharded sum reduces in another
+    # order (hold_train_step holds it to 1e-5)
+    import hashlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import mesh_context
+    from repro_torch.models import convert
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.stack import tree_map
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    cfg = get_config(arch).reduced(num_layers=layers)
+    api = get_model(cfg)
+    oc = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=10, quantize_v=True, clip_norm=1e6)
+    tr = Trainer(cfg, LoopConfig(seq_len=32, global_batch=4), oc, mesh=mesh, device="cpu")
+    model = convert.from_jax(tree, cfg, device="cpu", dtype=torch.float32, trainable=True)
+    sh = tr.place_state(ts.TrainState(model, opt.init_opt_state(convert.stacked_tree(model), oc),
+                                      torch.zeros((), dtype=torch.int32)))
+    numpy = lambda t: tree_map(  # noqa: E731
+        lambda x: tuple(e.numpy() for e in x) if isinstance(x, tuple) else x.numpy(), t)
+    out = {"bits": []}
+    for step in range(2):
+        batch = tr.pipeline.device_batch(step, "cpu", mesh, tr.ax)
+        with mesh_context(mesh):
+            loss = api.loss(sh.params, batch, cfg, tr.ax)
+            grads = torch.autograd.grad(loss, list(sh.params.parameters()))
+        g_host = convert.stacked_tree(sh.params, [g.full_tensor() for g in grads])
+        p_host, s_host = host_copy(convert.stacked_tree(sh.params)), host_copy(sh.opt)
+        stacked = convert.stacked_tree(sh.params)
+        new_opt, _ = opt.adamw_update_(convert.stacked_tree(sh.params, grads), sh.opt, stacked,
+                                       oc)
+        convert.load_stacked(sh.params, stacked)
+        want_p, want_s, _ = opt.adamw_update(g_host, s_host, p_host, oc)
+        got_p, got_s = host_copy(stacked), host_copy(new_opt)
+        same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b, strict=True))  # noqa: E731
+        v_got, v_want = opt.tree_leaves(got_s["v"]), opt.tree_leaves(want_s["v"])
+        out["bits"].append({
+            "p": same(opt.tree_leaves(got_p), opt.tree_leaves(want_p)),
+            "m": same(opt.tree_leaves(got_s["m"]), opt.tree_leaves(want_s["m"])),
+            "q": same([q for q, _ in v_got], [q for q, _ in v_want]),
+            "scale": same([s for _, s in v_got], [s for _, s in v_want]),
+        })
+        digest = hashlib.sha256()
+        for q, s in opt.tree_leaves(new_opt["v"]):
+            for t in (q.to_local(), s.to_local()):
+                digest.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, digest.hexdigest())
+        out["bits"][-1]["ranks_same_v"] = len(set(digests)) == 1
+        if step == 1:
+            out["jax_inputs"] = {"grads": numpy(g_host), "state": numpy(s_host),
+                                 "params": numpy(p_host), "lr": oc.lr, "clip_norm": oc.clip_norm}
+            out["got"] = {"params": numpy(got_p), "state": numpy(got_s)}
+        sh = ts.TrainState(sh.params, new_opt, sh.step + 1)
+    out["v_placements"] = sorted({str(t.placements) for x in opt.tree_leaves(sh.opt["v"])
+                                  for t in x})
+    return out
 
 
 def decode_case(case, mesh):
@@ -285,17 +387,21 @@ def run(rank, world, rdv, inputs, out):
         with open(inputs, "rb") as f:
             data = pickle.load(f)
         mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
-        res = {"train": {k: train_case(a, n, tree, mesh, over)
+        quantize = data["quantize"]
+        res = {"train": {k: train_case(a, n, tree, mesh, over, quantize)
                          for k, (a, n, over, tree) in data["trees"].items()
                          if k in data["train"]},
+               "quant": {k: quant_case(a, n, tree, mesh)
+                         for k, (a, n, over, tree) in data["trees"].items()
+                         if quantize and k in data["train"]},
                "serve": {k: serve_case(a, n, tree, mesh, data["jax_serve"][k], data["f32_tol"])
                          for k, (a, n, over, tree) in data["trees"].items()
                          if k in data["serve"]},
-               "ckpt": ckpt_case(mesh, rank) if data["ckpt"] else None,
+               "ckpt": ckpt_case(mesh, rank, quantize) if data["ckpt"] else None,
                "decode": [decode_case(c, mesh) for c in data["decode"]]}
         if rank == 0:
-            with open(out, "w") as f:
-                json.dump(res, f)
+            with open(out, "wb") as f:
+                pickle.dump(res, f)
     finally:
         dist.destroy_process_group()
 
@@ -387,10 +493,12 @@ def hold_train_step(r: dict) -> None:
 
 
 def run_ranks(tmp: pathlib.Path, archs=(), ckpt: bool = False, decode: bool = False,
-              serve=()) -> dict:
+              serve=(), quantize: bool = False) -> dict:
     """Spawn the 4 ranks on ``archs``' train steps and ``serve``'s
     prefill and decodes (and the checkpoint and decode cases when
-    asked); returns their measurements."""
+    asked); returns their measurements. With ``quantize`` the train steps
+    and the checkpoint run with the int8 second moment, and each of
+    ``archs`` also runs ``quant_case``."""
     trees = {}
     for key in (*archs, *serve):
         arch, over = VARIANTS.get(key, (key, {}))
@@ -405,7 +513,7 @@ def run_ranks(tmp: pathlib.Path, archs=(), ckpt: bool = False, decode: bool = Fa
     inputs, out, script = tmp / "inputs.pkl", tmp / "results.json", tmp / "mesh_ranks.py"
     with open(inputs, "wb") as f:
         pickle.dump({"trees": trees, "ckpt": ckpt, "train": list(archs), "serve": list(serve),
-                     "jax_serve": jax_serve, "f32_tol": F32_TOL,
+                     "jax_serve": jax_serve, "f32_tol": F32_TOL, "quantize": quantize,
                      "decode": _decode_inputs() if decode else []}, f)
     script.write_text(SCRIPT)
     r = subprocess.run(
@@ -414,4 +522,5 @@ def run_ranks(tmp: pathlib.Path, archs=(), ckpt: bool = False, decode: bool = Fa
         cwd=ROOT, timeout=300, capture_output=True, text=True,
     )
     assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-8000:]
-    return json.loads(out.read_text())
+    with open(out, "rb") as f:
+        return pickle.load(f)

@@ -82,6 +82,7 @@ from repro_torch.kernels import ragged_decode as _rdk
 from repro_torch.kernels.backend import resolve_device, synchronize
 from repro_torch.kernels.gf256_matmul import expand_coeff_bitplanes
 from repro_torch.kernels.ops import _next_pow2
+from repro_torch.obs import host
 from repro_torch.storage.blockstore import BlockKey
 
 _log = logging.getLogger(__name__)
@@ -147,6 +148,7 @@ class CoalescerStats:
     encode_calls: int = 0  # encode kernel launches issued
     encode_compute_time: float = 0.0  # scaled seconds, cumulative
     encode_windows: int = 0  # execute_encode() calls that had work
+    decode_out_bytes: int = 0  # bytes of the decode outputs execute() returned
 
     @property
     def coalescing_ratio(self) -> float:
@@ -290,6 +292,7 @@ class DecodeCoalescer:
                         fetch, results, units,
                     )
         self.stats.decode_shapes = len(self._shapes)
+        self.stats.decode_out_bytes += sum(a.nbytes for r in results for a in r.values())
         return results, units
 
     def execute_encode(
@@ -418,18 +421,20 @@ class DecodeCoalescer:
         xor_kind = kind in ("V", "EV")
         n_data = c * k_cap * tn
         staging = self._buffer((kind, c), n_data + (0 if xor_kind else c * k_cap * 8))
-        flat = staging.numpy()
-        flat.fill(0)
-        data = flat[:n_data].reshape(c, k_cap, tn)
-        mc = None if xor_kind else flat[n_data:].reshape(c, k_cap, 8)
-        useful = 0
-        for slot, (ri, off, valid) in enumerate(chunk_tiles):
-            _j, _col, planes, sources, _length = rows[ri]
-            for k, s in enumerate(sources):
-                data[slot, k, :valid] = src[s][off : off + valid]
-            if mc is not None:
-                mc[slot, : planes.shape[0], :] = planes
-            useful += valid * len(sources)
+        with host.span("coalescer.stage") as sp:
+            flat = staging.numpy()
+            flat.fill(0)
+            data = flat[:n_data].reshape(c, k_cap, tn)
+            mc = None if xor_kind else flat[n_data:].reshape(c, k_cap, 8)
+            useful = 0
+            for slot, (ri, off, valid) in enumerate(chunk_tiles):
+                _j, _col, planes, sources, _length = rows[ri]
+                for k, s in enumerate(sources):
+                    data[slot, k, :valid] = src[s][off : off + valid]
+                if mc is not None:
+                    mc[slot, : planes.shape[0], :] = planes
+                useful += valid * len(sources)
+            sp.nbytes = useful
         device = self.device
 
         def launch() -> torch.Tensor:
@@ -472,21 +477,25 @@ class DecodeCoalescer:
                     "retired %d launch signature(s)",
                     kind, k_cap, tn, len(stale),
                 )
-            launch()
-            synchronize(device)
+            with host.span("coalescer.launch"):
+                launch()
+                synchronize(device)
             self._warm.add(sig)
             self.stats.jit_entries = len(self._warm)
             self.stats.jit_retraces += 1
         t0 = time.perf_counter()
-        out = launch()
-        synchronize(device)
-        out = out.cpu().numpy()
+        with host.span("coalescer.launch"):
+            out = launch()
+            synchronize(device)
+        with host.span("coalescer.d2h", out.nbytes):
+            out = out.cpu().numpy()
         dt = (time.perf_counter() - t0) * self.compute_scale
         best = self._best.get(sig)
         dt = dt if best is None or dt < best else best
         self._best[sig] = dt
-        for slot, (ri, off, valid) in enumerate(chunk_tiles):
-            out_rows[ri][off : off + valid] = out[slot, :valid]
+        with host.span("coalescer.scatter", out.nbytes):
+            for slot, (ri, off, valid) in enumerate(chunk_tiles):
+                out_rows[ri][off : off + valid] = out[slot, :valid]
         # one unit per op, billed its tile share of the launch, so the
         # engine pool can spread this single launch across engines
         # (the gateway still gates all of them on the launch-wide
@@ -525,23 +534,25 @@ class DecodeCoalescer:
         # gather every stripe straight into one (B_pad, K, N) host array;
         # ladder padding replicates the first stripe — same shape, same
         # coefficients, output rows sliced away below
-        data = np.empty((b_pad, len(first.sources), n), dtype=np.uint8)
-        for b, i in enumerate(idxs):
-            for k, s in enumerate(decode_ops[i].sources):
-                data[b, k] = fetch(s)
-        data[len(idxs) :] = data[0]
-        host = torch.from_numpy(data)
+        with host.span("coalescer.stage") as sp:
+            data = np.empty((b_pad, len(first.sources), n), dtype=np.uint8)
+            for b, i in enumerate(idxs):
+                for k, s in enumerate(decode_ops[i].sources):
+                    data[b, k] = fetch(s)
+            data[len(idxs) :] = data[0]
+            sp.nbytes = data.nbytes
+        staged = torch.from_numpy(data)
         device = self.device
         block_n = None if tuned is None else tuned.block_n_for(n)
         if kind == "V":
             launch = lambda: ops.xor_parity_batched(  # noqa: E731
-                host.to(device), block_n=block_n
+                staged.to(device), block_n=block_n
             )
         else:
             pad_idxs = idxs + [idxs[0]] * (b_pad - len(idxs))
             coefs = np.stack([decode_ops[i].coeffs for i in pad_idxs])  # (B, M, K)
             launch = lambda: ops.gf256_matmul_batched(  # noqa: E731
-                coefs, host.to(device), block_n=block_n
+                coefs, staged.to(device), block_n=block_n
             )
         # Untimed warm-up on first sight of a launch signature: the
         # padded batch size B and byte length are the shape keys, and
@@ -549,22 +560,26 @@ class DecodeCoalescer:
         # window's simulated decode latency.
         sig = (BUCKETED, key, b_pad, n)
         if sig not in self._warm:
-            launch()
-            synchronize(device)
+            with host.span("coalescer.launch"):
+                launch()
+                synchronize(device)
             self._warm.add(sig)
             self.stats.jit_entries = len(self._warm)
             self.stats.jit_retraces += 1
         t0 = time.perf_counter()
-        out = launch()
-        synchronize(device)
-        out = out.cpu().numpy()
-        if kind == "V":
-            for b, i in enumerate(idxs):  # out: (B, N)
-                results[i][decode_ops[i].targets[0]] = out[b]
-        else:
-            for b, i in enumerate(idxs):  # out: (B, M, N)
-                for m, col in enumerate(decode_ops[i].targets):
-                    results[i][col] = out[b, m]
+        with host.span("coalescer.launch"):
+            out = launch()
+            synchronize(device)
+        with host.span("coalescer.d2h", out.nbytes):
+            out = out.cpu().numpy()
+        with host.span("coalescer.scatter", out.nbytes):
+            if kind == "V":
+                for b, i in enumerate(idxs):  # out: (B, N)
+                    results[i][decode_ops[i].targets[0]] = out[b]
+            else:
+                for b, i in enumerate(idxs):  # out: (B, M, N)
+                    for m, col in enumerate(decode_ops[i].targets):
+                        results[i][col] = out[b, m]
         dt = (time.perf_counter() - t0) * self.compute_scale
         # bill at the signature's best-observed time (module docstring)
         best = self._best.get(sig)

@@ -136,6 +136,7 @@ from repro_torch.gateway.workload import (
     SlowNodeEvent,
 )
 from repro_torch.kernels import autotune
+from repro_torch.obs import host
 from repro_torch.obs.metrics import BoundedLog, BoundedSamples, MetricsRegistry
 from repro_torch.obs.tracer import NULL_TRACER, Tracer
 from repro_torch.storage.blockstore import BlockKey, BlockStore
@@ -1044,8 +1045,14 @@ class ObjectGateway:
         ScenarioTrace's ``cluster_events()``. Events apply mid-run, in
         time order interleaved with the request stream, so the planner,
         negative cache, and admission controller see availability change
-        between requests."""
+        between requests. While a profiler runs, the call records its
+        host spans (``repro_torch.obs.host``) into ``report.metrics``."""
         report = GatewayReport(record_requests=self.config.record_requests)
+        with host.recording(report.metrics, "gateway.serve"):
+            self._serve(report, requests, failures)
+        return report
+
+    def _serve(self, report: GatewayReport, requests: list[Request], failures) -> None:
         cfg = self.config
         events = sorted(failures or [], key=lambda f: f.time)
         reqs = sorted(requests, key=lambda r: r.time)
@@ -1129,7 +1136,6 @@ class ObjectGateway:
         flush_open()
         boundary_events(None)
         self._finalize_report(report)
-        return report
 
     def _finalize_report(self, report: GatewayReport) -> None:
         """Stamp end-of-serve coalescer/autotune/tracer statistics into
@@ -1166,81 +1172,82 @@ class ObjectGateway:
         # may otherwise evict them before their request executes.
         pinned: dict[BlockKey, np.ndarray] = {}
         slos = self.config.tenant_slo_p99 or {}
-        for req in batch:
-            # serve() handles PUTs as window barriers before batching;
-            # a PUT inside a window would break the pin/plan invariants
-            assert req.kind == "get", f"batch may only hold GETs, got {req.kind}"
-            if (
-                req.object_id not in self._objects
-                or req.object_id in self._deleted
-            ):
-                report.add_record(
-                    RequestRecord(
-                        req.time, req.object_id, "get", None, False, 0, 0, 0,
-                        tenant=req.tenant,
-                    )
-                )
-                continue
-            gid, row = self._objects[req.object_id]
-            self._clock = req.time
-            try:
-                plan = self.planner.plan(gid, row, at=req.time)
-            except UnreadableObjectError:
-                report.add_record(
-                    RequestRecord(
-                        req.time, req.object_id, "get", None, True, 0, 0, 0,
-                        tenant=req.tenant,
-                    )
-                )
-                continue
-            # SLO admission: estimate queue + transfer + decode time for
-            # the plan; degrade mode first re-ranks the planner's
-            # candidates by that estimate (a backlogged engine can make
-            # the Table-1 byte-cheapest plan the latency-dearest one).
-            slo = slos.get(req.tenant)
-            if slo is not None and self.config.admission != ADMIT_OFF:
-                est = self._estimate_service_time(plan, req.time, req.tenant)
-                if est > slo and self.config.admission == ADMIT_DEGRADE:
-                    plan, est = min(
-                        (
-                            (p, self._estimate_service_time(p, req.time, req.tenant))
-                            for p in self.planner.candidates(gid, row, at=req.time)
-                        ),
-                        key=lambda pe: pe[1],
-                    )
-                if est > slo:
-                    report.rejections[req.tenant] = (
-                        report.rejections.get(req.tenant, 0) + 1
-                    )
+        with host.span("gateway.plan"):
+            for req in batch:
+                # serve() handles PUTs as window barriers before batching;
+                # a PUT inside a window would break the pin/plan invariants
+                assert req.kind == "get", f"batch may only hold GETs, got {req.kind}"
+                if (
+                    req.object_id not in self._objects
+                    or req.object_id in self._deleted
+                ):
                     report.add_record(
                         RequestRecord(
-                            req.time, req.object_id, "get", None,
-                            plan.degraded, 0, 0, 0,
-                            tenant=req.tenant, rejected=True,
+                            req.time, req.object_id, "get", None, False, 0, 0, 0,
+                            tenant=req.tenant,
                         )
                     )
                     continue
-            if self.cache is not None:
-                for key in plan.source_keys:
-                    if key not in pinned and not self.store.available(key):
-                        blk = self.cache.get(key)
-                        if blk is not None:
-                            pinned[key] = blk
-            tid = 0
-            if tracer.enabled:
-                tid = tracer.begin_trace()
-                tracer.instant(
-                    "plan",
-                    req.time,
-                    tid,
-                    tid,
-                    track=("tenant", req.tenant),
-                    degraded=plan.degraded,
-                    sources=len(plan.source_keys),
-                    decodes=len(plan.decodes),
-                )
-            gets.append((req, plan))
-            tids.append(tid)
+                gid, row = self._objects[req.object_id]
+                self._clock = req.time
+                try:
+                    plan = self.planner.plan(gid, row, at=req.time)
+                except UnreadableObjectError:
+                    report.add_record(
+                        RequestRecord(
+                            req.time, req.object_id, "get", None, True, 0, 0, 0,
+                            tenant=req.tenant,
+                        )
+                    )
+                    continue
+                # SLO admission: estimate queue + transfer + decode time for
+                # the plan; degrade mode first re-ranks the planner's
+                # candidates by that estimate (a backlogged engine can make
+                # the Table-1 byte-cheapest plan the latency-dearest one).
+                slo = slos.get(req.tenant)
+                if slo is not None and self.config.admission != ADMIT_OFF:
+                    est = self._estimate_service_time(plan, req.time, req.tenant)
+                    if est > slo and self.config.admission == ADMIT_DEGRADE:
+                        plan, est = min(
+                            (
+                                (p, self._estimate_service_time(p, req.time, req.tenant))
+                                for p in self.planner.candidates(gid, row, at=req.time)
+                            ),
+                            key=lambda pe: pe[1],
+                        )
+                    if est > slo:
+                        report.rejections[req.tenant] = (
+                            report.rejections.get(req.tenant, 0) + 1
+                        )
+                        report.add_record(
+                            RequestRecord(
+                                req.time, req.object_id, "get", None,
+                                plan.degraded, 0, 0, 0,
+                                tenant=req.tenant, rejected=True,
+                            )
+                        )
+                        continue
+                if self.cache is not None:
+                    for key in plan.source_keys:
+                        if key not in pinned and not self.store.available(key):
+                            blk = self.cache.get(key)
+                            if blk is not None:
+                                pinned[key] = blk
+                tid = 0
+                if tracer.enabled:
+                    tid = tracer.begin_trace()
+                    tracer.instant(
+                        "plan",
+                        req.time,
+                        tid,
+                        tid,
+                        track=("tenant", req.tenant),
+                        degraded=plan.degraded,
+                        sources=len(plan.source_keys),
+                        decodes=len(plan.decodes),
+                    )
+                gets.append((req, plan))
+                tids.append(tid)
         if not gets:
             return
 
@@ -1267,193 +1274,195 @@ class ObjectGateway:
         alive: list[bool] = []
         fetched: dict[BlockKey, np.ndarray] = {}
         for i, (req, plan) in enumerate(gets):
-            client = self._client_port(req)
-            tid = tids[i]
-            gid, row = self._objects[req.object_id]
-            fetch_at0 = fetch_at = (
-                max(plan.planned_at, self._window_free)
-                if serial
-                else plan.planned_at
-            )
-            # SLO tenants stamp their fabric transfers with a deadline so
-            # the simulator's per-tenant miss counters line up with the
-            # report's violation rates.
-            deadline = (
-                req.time + slos[req.tenant] if req.tenant in slos else None
-            )
-            key_ready: dict[BlockKey, float] = {}
-            nbytes = 0
-            hits = 0
-            hedges = 0
-            n_store = 0  # store fetches scheduled for THIS request
-            extra_ops: list = []
-            dropped_direct: set[BlockKey] = set()
-            ok_request = True
-            trk = ("tenant", req.tenant)
-            # Replan loop: terminates because every corruption detection
-            # permanently quarantines a source (the replan never picks it
-            # again); the attempt cap is pure defense in depth.
-            for _attempt in range(self.code.n * self.family.rows + 1):
-                corrupt: list[tuple[BlockKey, float]] = []
-                stale = False
-                # direct fetches eligible to hedge; the DECISION is
-                # deferred until every primary of this attempt is booked,
-                # so the alternate path can reuse the whole in-flight
-                # fetch set for free
-                h_cands: list[tuple[BlockKey, float, int, float]] = []
-                for key in plan.source_keys:
-                    if key in key_ready:
-                        continue
-                    blk = pinned.get(key)
-                    if blk is None and self.cache is not None:
-                        blk = self.cache.get(key)
-                    if blk is not None:
-                        # cache copies were digest-verified when they
-                        # entered (fetch path) or checked post-decode —
-                        # no re-verify: checksumming models DISK reads
-                        key_ready[key] = max(
-                            fetch_at, self._cache_ready.get(key, 0.0)
+            with host.span("gateway.fetch", object_id=req.object_id) as fetch_span:
+                client = self._client_port(req)
+                tid = tids[i]
+                gid, row = self._objects[req.object_id]
+                fetch_at0 = fetch_at = (
+                    max(plan.planned_at, self._window_free)
+                    if serial
+                    else plan.planned_at
+                )
+                # SLO tenants stamp their fabric transfers with a deadline so
+                # the simulator's per-tenant miss counters line up with the
+                # report's violation rates.
+                deadline = (
+                    req.time + slos[req.tenant] if req.tenant in slos else None
+                )
+                key_ready: dict[BlockKey, float] = {}
+                nbytes = 0
+                hits = 0
+                hedges = 0
+                n_store = 0  # store fetches scheduled for THIS request
+                extra_ops: list = []
+                dropped_direct: set[BlockKey] = set()
+                ok_request = True
+                trk = ("tenant", req.tenant)
+                # Replan loop: terminates because every corruption detection
+                # permanently quarantines a source (the replan never picks it
+                # again); the attempt cap is pure defense in depth.
+                for _attempt in range(self.code.n * self.family.rows + 1):
+                    corrupt: list[tuple[BlockKey, float]] = []
+                    stale = False
+                    # direct fetches eligible to hedge; the DECISION is
+                    # deferred until every primary of this attempt is booked,
+                    # so the alternate path can reuse the whole in-flight
+                    # fetch set for free
+                    h_cands: list[tuple[BlockKey, float, int, float]] = []
+                    for key in plan.source_keys:
+                        if key in key_ready:
+                            continue
+                        blk = pinned.get(key)
+                        if blk is None and self.cache is not None:
+                            blk = self.cache.get(key)
+                        if blk is not None:
+                            # cache copies were digest-verified when they
+                            # entered (fetch path) or checked post-decode —
+                            # no re-verify: checksumming models DISK reads
+                            key_ready[key] = max(
+                                fetch_at, self._cache_ready.get(key, 0.0)
+                            )
+                            hits += 1
+                            if tracer.enabled:
+                                tracer.instant(
+                                    "cache.hit",
+                                    key_ready[key],
+                                    tid,
+                                    tid,
+                                    track=trk,
+                                    key=key,
+                                )
+                            fetched[key] = blk
+                            continue
+                        if not self.store.available(key):
+                            # quarantined by an earlier request of this same
+                            # window: nothing to fetch, the replan below
+                            # routes around it
+                            stale = True
+                            continue
+                        blk = self.store.get(key)
+                        src_node = self.store.node_of(key)
+                        # committed backlog BEFORE this transfer books its
+                        # own reservation: the hedge deadline must measure
+                        # the fabric as the request found it
+                        pre_backlog = (
+                            self.sim.send_backlog(
+                                src_node, self._fab_tenant(req.tenant), fetch_at
+                            )
+                            if self.config.hedge and key in plan.direct
+                            else None
                         )
-                        hits += 1
+                        n_store += 1
+                        end = self.sim.transfer(
+                            Transfer(
+                                src_node,
+                                client,
+                                blk.nbytes,
+                                fetch_at,
+                                tenant=self._fab_tenant(req.tenant),
+                                deadline=deadline,
+                                ctx=(tid, tid) if tracer.enabled else None,
+                            )
+                        )
+                        nbytes += blk.nbytes
+                        self._fetch_bytes[req.tenant] = (
+                            self._fetch_bytes.get(req.tenant, 0) + blk.nbytes
+                        )
+                        if verify_ck and not self.store.verify(key):
+                            # corrupt bytes crossed the fabric and failed
+                            # the digest check on landing — never cached,
+                            # never delivered
+                            corrupt.append((key, end))
+                            continue
+                        if pre_backlog is not None:
+                            h_cands.append((key, pre_backlog, n_store, end))
+                        key_ready[key] = end
+                        fetched[key] = blk
+                        if self.cache is not None:
+                            self.cache.put(key, blk)
+                            self._cache_ready[key] = end
                         if tracer.enabled:
-                            tracer.instant(
-                                "cache.hit",
-                                key_ready[key],
+                            # request-side view: includes fabric queueing
+                            # (the port-track xfer span shows the transfer
+                            # itself, from its first byte)
+                            tracer.span(
+                                "fetch",
+                                fetch_at,
+                                end,
                                 tid,
                                 tid,
                                 track=trk,
                                 key=key,
+                                src=src_node,
+                                bytes=blk.nbytes,
                             )
-                        fetched[key] = blk
-                        continue
-                    if not self.store.available(key):
-                        # quarantined by an earlier request of this same
-                        # window: nothing to fetch, the replan below
-                        # routes around it
-                        stale = True
-                        continue
-                    blk = self.store.get(key)
-                    src_node = self.store.node_of(key)
-                    # committed backlog BEFORE this transfer books its
-                    # own reservation: the hedge deadline must measure
-                    # the fabric as the request found it
-                    pre_backlog = (
-                        self.sim.send_backlog(
-                            src_node, self._fab_tenant(req.tenant), fetch_at
+                    # Deadline baseline: the LEAST-backlogged source this
+                    # request fetched from. A fail-slow port's own committed
+                    # queue is stretched by the very slowness being detected,
+                    # so pricing each candidate against its own backlog would
+                    # let a gray source re-baseline its own deadline into
+                    # oblivion; the cross-source differential is the signal.
+                    base_b = min((b for _, b, _, _ in h_cands), default=0.0)
+                    for h_key, _pre_b, n_at, h_end in h_cands:
+                        if hedges >= self.config.hedge_max_retries:
+                            break
+                        h_op, h_bytes, h_hits, launched = self._maybe_hedge(
+                            req, h_key, fetch_at, base_b, n_at, h_end, hedges,
+                            client, deadline, key_ready, fetched, pinned,
+                            report, tid, trk,
                         )
-                        if self.config.hedge and key in plan.direct
-                        else None
-                    )
-                    n_store += 1
-                    end = self.sim.transfer(
-                        Transfer(
-                            src_node,
-                            client,
-                            blk.nbytes,
-                            fetch_at,
-                            tenant=self._fab_tenant(req.tenant),
-                            deadline=deadline,
-                            ctx=(tid, tid) if tracer.enabled else None,
-                        )
-                    )
-                    nbytes += blk.nbytes
-                    self._fetch_bytes[req.tenant] = (
-                        self._fetch_bytes.get(req.tenant, 0) + blk.nbytes
-                    )
-                    if verify_ck and not self.store.verify(key):
-                        # corrupt bytes crossed the fabric and failed
-                        # the digest check on landing — never cached,
-                        # never delivered
-                        corrupt.append((key, end))
-                        continue
-                    if pre_backlog is not None:
-                        h_cands.append((key, pre_backlog, n_store, end))
-                    key_ready[key] = end
-                    fetched[key] = blk
-                    if self.cache is not None:
-                        self.cache.put(key, blk)
-                        self._cache_ready[key] = end
-                    if tracer.enabled:
-                        # request-side view: includes fabric queueing
-                        # (the port-track xfer span shows the transfer
-                        # itself, from its first byte)
-                        tracer.span(
-                            "fetch",
-                            fetch_at,
-                            end,
-                            tid,
-                            tid,
-                            track=trk,
-                            key=key,
-                            src=src_node,
-                            bytes=blk.nbytes,
-                        )
-                # Deadline baseline: the LEAST-backlogged source this
-                # request fetched from. A fail-slow port's own committed
-                # queue is stretched by the very slowness being detected,
-                # so pricing each candidate against its own backlog would
-                # let a gray source re-baseline its own deadline into
-                # oblivion; the cross-source differential is the signal.
-                base_b = min((b for _, b, _, _ in h_cands), default=0.0)
-                for h_key, _pre_b, n_at, h_end in h_cands:
-                    if hedges >= self.config.hedge_max_retries:
+                        nbytes += h_bytes
+                        hits += h_hits
+                        if launched:
+                            hedges += 1
+                        if h_op is not None:
+                            extra_ops.append(h_op)
+                            dropped_direct.add(h_key)
+                    if not corrupt and not stale:
                         break
-                    h_op, h_bytes, h_hits, launched = self._maybe_hedge(
-                        req, h_key, fetch_at, base_b, n_at, h_end, hedges,
-                        client, deadline, key_ready, fetched, pinned,
-                        report, tid, trk,
+                    detect_at = max((e for _, e in corrupt), default=fetch_at)
+                    for key, at in corrupt:
+                        self._note_corrupt(
+                            key,
+                            at,
+                            report,
+                            source="read",
+                            ctx=(tid, tid, trk) if tracer.enabled else None,
+                        )
+                    # the degraded replan starts when the LAST bad fetch of
+                    # this round landed — detection costs real latency
+                    self._clock = fetch_at = max(detect_at, fetch_at)
+                    try:
+                        plan = self.planner.plan(gid, row, at=fetch_at)
+                    except UnreadableObjectError:
+                        ok_request = False
+                        break
+                if ok_request and (extra_ops or dropped_direct):
+                    plan = replace(
+                        plan,
+                        direct=tuple(
+                            k for k in plan.direct if k not in dropped_direct
+                        ),
+                        decodes=plan.decodes + tuple(extra_ops),
                     )
-                    nbytes += h_bytes
-                    hits += h_hits
-                    if launched:
-                        hedges += 1
-                    if h_op is not None:
-                        extra_ops.append(h_op)
-                        dropped_direct.add(h_key)
-                if not corrupt and not stale:
-                    break
-                detect_at = max((e for _, e in corrupt), default=fetch_at)
-                for key, at in corrupt:
-                    self._note_corrupt(
-                        key,
-                        at,
-                        report,
-                        source="read",
-                        ctx=(tid, tid, trk) if tracer.enabled else None,
+                gets[i] = (req, plan)
+                if not ok_request:
+                    # corruption detections mid-window pushed the object past
+                    # tolerance: fail the read (bytes already moved are real)
+                    report.add_record(
+                        RequestRecord(
+                            req.time, req.object_id, "get", None, True,
+                            nbytes, 0, hits, tenant=req.tenant,
+                        )
                     )
-                # the degraded replan starts when the LAST bad fetch of
-                # this round landed — detection costs real latency
-                self._clock = fetch_at = max(detect_at, fetch_at)
-                try:
-                    plan = self.planner.plan(gid, row, at=fetch_at)
-                except UnreadableObjectError:
-                    ok_request = False
-                    break
-            if ok_request and (extra_ops or dropped_direct):
-                plan = replace(
-                    plan,
-                    direct=tuple(
-                        k for k in plan.direct if k not in dropped_direct
-                    ),
-                    decodes=plan.decodes + tuple(extra_ops),
-                )
-            gets[i] = (req, plan)
-            if not ok_request:
-                # corruption detections mid-window pushed the object past
-                # tolerance: fail the read (bytes already moved are real)
-                report.add_record(
-                    RequestRecord(
-                        req.time, req.object_id, "get", None, True,
-                        nbytes, 0, hits, tenant=req.tenant,
-                    )
-                )
-                if tracer.enabled:
-                    tracer.end_trace(tid)
-            alive.append(ok_request)
-            ready.append(key_ready)
-            bytes_read.append(nbytes)
-            cache_hits.append(hits)
-            fetch_ats.append(fetch_at0)
+                    if tracer.enabled:
+                        tracer.end_trace(tid)
+                fetch_span.nbytes = nbytes
+                alive.append(ok_request)
+                ready.append(key_ready)
+                bytes_read.append(nbytes)
+                cache_hits.append(hits)
+                fetch_ats.append(fetch_at0)
 
         # 2) decode: dedup identical reconstructions (a hot degraded
         # object appears once per window, not once per request), then one
@@ -1481,13 +1490,15 @@ class ObjectGateway:
             # so a mismatch here means the decode pipeline itself (or an
             # unverified path feeding it) produced wrong bytes — a bug,
             # not a modeled fault.
-            for j, op in enumerate(uops):
-                for col, out in results[j].items():
-                    if self.store.checksum_ok((op.group_id, op.row, col), out) is False:
-                        raise AssertionError(
-                            "decode output digest mismatch for block "
-                            f"({op.group_id}, {op.row}, {col})"
-                        )
+            checked = sum(out.nbytes for r in results for out in r.values())
+            with host.span("gateway.decode_check", checked):
+                for j, op in enumerate(uops):
+                    for col, out in results[j].items():
+                        if self.store.checksum_ok((op.group_id, op.row, col), out) is False:
+                            raise AssertionError(
+                                "decode output digest mismatch for block "
+                                f"({op.group_id}, {op.row}, {col})"
+                            )
         if self.config.decode_cost_per_tile is not None:
             # throughput-bound modeled billing: a unit costs its tile
             # count, so splitting the op stream into more/smaller
@@ -1625,12 +1636,15 @@ class ObjectGateway:
                 done = max(done, op_done[unique_idx[okey]])
             digest = None
             if self.config.verify or self.config.record_payloads:
-                payload = self._assemble_payload(req, plan, fetched, decoded_per_req[i])
+                with host.span("gateway.assemble", object_id=req.object_id) as sp:
+                    payload = self._assemble_payload(req, plan, fetched, decoded_per_req[i])
+                    sp.nbytes = payload.nbytes
                 if self.config.verify:
                     self._verify_get(req, payload)
                     report.metrics.counter("verified_gets").inc()
                 if self.config.record_payloads:
-                    digest = hashlib.sha256(payload.tobytes()).hexdigest()
+                    with host.span("gateway.sha256", payload.nbytes, object_id=req.object_id):
+                        digest = hashlib.sha256(payload.tobytes()).hexdigest()
             if self.cache is not None:
                 gid, row = self._objects[req.object_id]
                 costs = decode_cost.get(i, {})
@@ -2813,13 +2827,15 @@ class ObjectGateway:
                 # corrupt source joins the missing set instead of
                 # poisoning the regenerated blocks (which would carry a
                 # fresh digest over wrong bytes)
-                bad = [
+                held = [
                     (gid, r, c)
                     for r in range(self.family.rows)
                     for c in range(self.code.n)
                     if (gid, r, c) in self.store.blocks
-                    and not self.store.verify((gid, r, c))
                 ]
+                nbytes = sum(self.store.blocks[key].nbytes for key in held)
+                with host.span("repair.verify", nbytes, group=gid):
+                    bad = [key for key in held if not self.store.verify(key)]
                 for key in bad:
                     self._note_corrupt(
                         key, at_time, report, source="repair",

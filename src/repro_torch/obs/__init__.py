@@ -1,10 +1,11 @@
 """Sim-time observability plane: spans, streaming metrics, Perfetto
-export and critical-path accounting for the gateway stack.
+export and critical-path accounting for the gateway stack; and the
+wall-clock host spans of ``obs.host`` (below).
 
-Everything here runs over the SIMULATED clock — spans measure simulated
-seconds, not wall time — and is observation-only by contract: enabling
-tracing never changes event ordering, simulated timestamps, or payload
-bytes (tests/test_obs.py pins traced ≡ untraced fingerprints).
+Everything here but ``obs.host`` runs over the SIMULATED clock — spans
+measure simulated seconds, not wall time — and is observation-only by
+contract: enabling tracing never changes event ordering, simulated
+timestamps, or payload bytes (tests/test_obs.py pins traced ≡ untraced fingerprints).
 
 Span taxonomy
 =============
@@ -66,6 +67,50 @@ Track layout (Perfetto: one process per group, one thread per member):
   ``("fabric", port<n>)``    per-send-port transfers
   ``("repair", repair)``     background repair activity
 
+Host spans (``obs.host``: wall clock, not simulated)
+=====================================================
+
+``ObjectGateway.serve`` records these while a ``torch.profiler`` runs,
+each as a ``repro_torch.<name>`` host range (function scope, so never on
+the device's annotation track) on the profiler's clock and as
+``host_s`` / ``host_self_s`` / ``host_bytes`` / ``host_calls`` counters
+(label ``span``) in the call's ``GatewayReport.metrics``; untraced calls
+record nothing. The benchmark's ``portbench/metrics`` readers named in
+brackets read them.
+
+  ``gateway.serve``        root: the whole call  [gateway.untraced_pct.*:
+                           self over inclusive]
+  ``gateway.plan``         ``_flush``: planning and admission of a batch
+  ``gateway.fetch``        ``_flush``, per request: ``store.get``, crc32
+                           verify and fabric booking of its blocks; bytes
+                           fetched; args object_id
+                           [gateway.fetch_ms_per_GiB.get]
+  ``gateway.decode_check`` ``_flush``: crc32 of the decode outputs
+                           against their stored digests; bytes checked
+  ``coalescer.stage``      gather of a chunk (bucket) into the staging
+                           buffer; bytes staged  [coalescer.host_copy_*]
+  ``coalescer.launch``     H2D copy and kernel, the host blocked on the
+                           synchronize  [coalescer.device_wait_*]
+  ``coalescer.d2h``        ``out.cpu().numpy()``; bytes out
+                           [coalescer.device_wait_*]
+  ``coalescer.scatter``    copy of ``out`` into the op results; bytes out
+                           [coalescer.host_copy_*]
+  ``gateway.assemble``     ``_assemble_payload``; bytes of the payload
+                           [gateway.assemble_ms_per_GiB.get]
+  ``gateway.sha256``       the payload's sha256 (``record_payloads``)
+                           [gateway.sha256_ms_per_GiB.get]
+  ``repair.verify``        ``_background_repair``'s crc32 of a group's
+                           stored blocks; bytes verified
+                           [repair.verify_ms_per_GiB]
+  ``repair.fetch``         ``BlockFixer``: ``np.stack`` of the sources'
+                           ``store.get``; bytes fetched
+                           [repair.fetch_ms_per_GiB]
+  ``repair.codec``         the sources' copy to the device through the
+                           rebuilt block's copy back; bytes rebuilt
+                           [repair.device_wait_ms_per_GiB]
+  ``repair.put``           ``store.put_block`` of a rebuilt block (its
+                           crc32); bytes written  [repair.put_ms_per_GiB]
+
 Sampling: ``Tracer(sample=...)`` takes ``"always"``, ``"head:N"``,
 ``"tail:SECONDS"`` or comma-combinations (keep if ANY matches), so
 tail-latency traces are never dropped while steady-state traffic can be
@@ -98,6 +143,7 @@ from repro_torch.obs.export import (
     validate_file,
     write_chrome_trace,
 )
+from repro_torch.obs import host
 from repro_torch.obs.metrics import (
     BoundedLog,
     BoundedSamples,
@@ -123,6 +169,7 @@ __all__ = [
     "StreamHist",
     "Tracer",
     "critical_path",
+    "host",
     "launch_amortization",
     "stage_shares",
     "to_chrome_trace",

@@ -181,40 +181,6 @@ class Tracer:
     def abort_trace(self, trace_id: int) -> None:
         self._staged.pop(trace_id, None)
 
-    def replay_into(self, other: "Tracer") -> int:
-        """Re-emit this tracer's committed span stream into ``other`` with
-        the same call sequence a live run makes (begin_trace, one
-        span/root_span call per span, end_trace with the root's
-        latency), trace by trace in commit order. Benchmark harnesses
-        time this to price the tracer plane against a run's REAL span
-        payload: a tight deterministic loop, where an end-to-end A/B
-        wall comparison on a virtualized host drowns the few-percent
-        tracer cost in scheduler noise. Returns spans replayed."""
-        streams: dict[int, list[tuple]] = {}
-        for t in self._spans:
-            streams.setdefault(t[3], []).append(t)
-        n = 0
-        for stream in streams.values():
-            nid = other.begin_trace()
-            latency = None
-            for name, start, end, tid, sid, parent, track, attrs in stream:
-                if sid == tid:  # the trace's root span
-                    other.root_span(name, start, end, nid, track=track, **attrs)
-                    latency = end - start
-                else:
-                    other.span(
-                        name,
-                        start,
-                        end,
-                        nid,
-                        nid if parent is not None else None,
-                        track=track,
-                        **attrs,
-                    )
-                n += 1
-            other.end_trace(nid, latency=latency)
-        return n
-
     # -- queries ---------------------------------------------------------
     def trace(self, trace_id: int) -> list[Span]:
         """All committed spans of one trace, ordered by (start, span_id)."""

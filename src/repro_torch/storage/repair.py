@@ -36,6 +36,7 @@ from repro_torch.core.product_code import CoreCode, CoreCodec
 from repro_torch.core.recoverability import is_recoverable
 from repro_torch.core.scheduling import SCHEDULERS, RepairStep
 from repro_torch.kernels.backend import as_u8, resolve_device, synchronize
+from repro_torch.obs import host
 from repro_torch.storage.blockstore import BlockStore
 from repro_torch.storage.netmodel import ClusterProfile, NetSimulator, Transfer
 
@@ -240,14 +241,21 @@ class BlockFixer:
 
     # -- timed codec ops ------------------------------------------------------
     def _measure(self, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        synchronize(self._dev)
-        self._timed += (time.perf_counter() - t0) * self.profile.compute_scale
-        return out.cpu().numpy()
+        """``fn(*args)`` on the device, the last of ``args`` the host
+        blocks it reads (copied there first), back as a host array; the
+        compute time billed is from the launch to the synchronize."""
+        with host.span("repair.codec") as sp:
+            *lead, blocks = args
+            blocks = as_u8(blocks, self._dev)
+            t0 = time.perf_counter()
+            out = fn(*lead, blocks)
+            synchronize(self._dev)
+            self._timed += (time.perf_counter() - t0) * self.profile.compute_scale
+            sp.nbytes = out.nbytes
+            return out.cpu().numpy()
 
     def _vertical_repair(self, sources: np.ndarray) -> np.ndarray:
-        return self._measure(_xor_rows, as_u8(sources, self._dev))
+        return self._measure(_xor_rows, sources)
 
     def _horizontal_repair(
         self, avail_cols: np.ndarray, blocks: np.ndarray, missing_cols: np.ndarray
@@ -255,7 +263,7 @@ class BlockFixer:
         row_ids, coeffs = self.code.horizontal.repair_matrix(avail_cols, missing_cols)
         pos = {int(a): i for i, a in enumerate(avail_cols)}
         sel = np.asarray([pos[int(r)] for r in row_ids])
-        return self._measure(gf256.matmul, coeffs, as_u8(blocks[sel], self._dev))
+        return self._measure(gf256.matmul, coeffs, blocks[sel])
 
     # -- main entry ------------------------------------------------------------
     def fix_group(self, group_id: str, rows: int | None = None) -> RepairReport:
@@ -299,9 +307,9 @@ class BlockFixer:
         # source; its bytes exist only once its own fetches landed
         repaired_ready: dict[int, float] = {}
         for kind, sources, repaired in plan:
-            blocks = np.stack(
-                [self.store.get((group_id, 0, c)) for c in sources]
-            )
+            with host.span("repair.fetch") as sp:
+                blocks = np.stack([self.store.get((group_id, 0, c)) for c in sources])
+                sp.nbytes = blocks.nbytes
             dst = self._dst_node(group_id, 0, repaired[0])
             ready = 0.0
             for c in sources:
@@ -326,7 +334,8 @@ class BlockFixer:
                     np.asarray(sources), blocks, np.asarray(repaired)
                 )
             for i, c in enumerate(repaired):
-                self.store.put_block((group_id, 0, c), rep[i])
+                with host.span("repair.put", rep[i].nbytes):
+                    self.store.put_block((group_id, 0, c), rep[i])
                 repaired_ready[c] = ready
                 if self.on_block_repaired is not None:
                     self.on_block_repaired((group_id, 0, c))
@@ -358,7 +367,7 @@ class BlockFixer:
         row_ids, coeffs = self.family.code.repair_matrix(sources, missing)
         pos = {int(a): i for i, a in enumerate(sources)}
         sel = np.asarray([pos[int(r)] for r in row_ids])
-        return self._measure(gf256.matmul, coeffs, as_u8(blocks[sel], self._dev))
+        return self._measure(gf256.matmul, coeffs, blocks[sel])
 
     # -- HDFS-RAID modes --------------------------------------------------------
     def _fix_raid(self, group_id: str, rows: int, cols: int, optimized: bool) -> RepairReport:
@@ -388,7 +397,11 @@ class BlockFixer:
                     fetch_cols = avail[: self.code.k]  # Opt1: exactly k
                 else:
                     fetch_cols = avail  # classic: ALL remaining blocks
-                blocks = np.stack([self._get(group_id, r, c, repaired_cells) for c in fetch_cols])
+                with host.span("repair.fetch") as sp:
+                    blocks = np.stack(
+                        [self._get(group_id, r, c, repaired_cells) for c in fetch_cols]
+                    )
+                    sp.nbytes = blocks.nbytes
                 dst = self._dst_node(group_id, r, batch[0])
                 ready = 0.0
                 for c in fetch_cols:
@@ -411,7 +424,8 @@ class BlockFixer:
                     np.asarray(batch),
                 )
                 for i, c in enumerate(batch):
-                    self.store.put_block((group_id, r, c), rep[i])
+                    with host.span("repair.put", rep[i].nbytes):
+                        self.store.put_block((group_id, r, c), rep[i])
                     repaired_cells.add(c)
                     if self.on_block_repaired is not None:
                         self.on_block_repaired((group_id, r, c))
@@ -482,7 +496,9 @@ class BlockFixer:
         report: RepairReport,
     ) -> None:
         srcs = [(r, c) for (r, c) in step.sources]
-        blocks = np.stack([self.store.get((group_id, r, c)) for r, c in srcs])
+        with host.span("repair.fetch") as sp:
+            blocks = np.stack([self.store.get((group_id, r, c)) for r, c in srcs])
+            sp.nbytes = blocks.nbytes
         dst_cell = step.repairs[0]
         dst = self._dst_node(group_id, *dst_cell)
         ctx = self._obs_ctx()
@@ -520,7 +536,8 @@ class BlockFixer:
             missing_cols = np.asarray([c for (_, c) in step.repairs])
             rep = self._horizontal_repair(avail_cols, blocks, missing_cols)
         for i, cell in enumerate(step.repairs):
-            self.store.put_block((group_id, cell[0], cell[1]), rep[i])
+            with host.span("repair.put", rep[i].nbytes):
+                self.store.put_block((group_id, cell[0], cell[1]), rep[i])
             block_ready[cell] = ready
             if self.on_block_repaired is not None:
                 self.on_block_repaired((group_id, cell[0], cell[1]))
@@ -579,9 +596,7 @@ class BlockFixer:
                 )
             report.blocks_fetched += len(fetch)
             report.bytes_fetched += int(blocks.nbytes)
-            data = self._measure(
-                _decoder(self.code, tuple(fetch)), as_u8(blocks, self._dev)
-            )
+            data = self._measure(_decoder(self.code, tuple(fetch)), blocks)
         else:
             got: dict[int, np.ndarray] = {}
             for c in range(k):

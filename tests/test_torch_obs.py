@@ -235,23 +235,6 @@ def test_tracer_sampling_ring_and_drops_equal():
     assert drops == (0, 0, 0, False)
 
 
-def _replay(s):
-    tr = s.obs.Tracer()
-    for lat in (0.01, 0.2):
-        _one_trace(tr, lat)
-    sink = s.obs.Tracer(sample=tr.sample, capacity=tr.capacity)
-    n = tr.replay_into(sink)
-    return n, len(tr.spans), sink.traces_kept, tr.traces_kept, _strip(sink.spans)
-
-
-def test_tracer_replay_preserves_stream():
-    ref, port = both(_replay)
-    assert port == ref
-    n, committed, kept_sink, kept, spans = port
-    assert n == committed == len(spans) and kept_sink == kept
-    assert len([sp for sp in spans if sp[5] == sp[4]]) == kept
-
-
 # ---------------------------------------------------------------------------
 # gateway traces: parenting/ordering invariants + critical path
 # ---------------------------------------------------------------------------

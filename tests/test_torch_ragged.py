@@ -202,13 +202,16 @@ def _random_window(rng, n_ops, lengths=(100, 512, 1000, 4096), encode=False):
 
 
 _MEASURED = {"compute_time", "encode_compute_time"}
+# the port's own counter, which the reference's stats lack: held to the
+# bytes of the decode outputs ``execute`` returned instead
+_PORT_ONLY = {"decode_out_bytes"}
 
 
 def _stats(co):
     return {
         f.name: getattr(co.stats, f.name)
         for f in dataclasses.fields(co.stats)
-        if f.name not in _MEASURED
+        if f.name not in _MEASURED | _PORT_ONLY
     }
 
 
@@ -221,12 +224,15 @@ def _assert_same_windows(windows, encode=False):
     but measured wall time."""
     ours = tco.DecodeCoalescer(device="cpu", autotune_kernels=False)
     theirs = jco.DecodeCoalescer(interpret=True, mode=jco.RAGGED, autotune_kernels=False)
+    out_bytes = 0
     for w_ours, w_theirs, store in windows:
         fetch = lambda key: store[key]  # noqa: E731
         run_o = ours.execute_encode if encode else ours.execute
         run_t = theirs.execute_encode if encode else theirs.execute
         res_o, units_o = run_o(w_ours, fetch)
         res_t, units_t = run_t(w_theirs, fetch)
+        if not encode:
+            out_bytes += sum(a.nbytes for r in res_o for a in r.values())
         assert len(res_o) == len(res_t) == len(w_ours)
         for a, b in zip(res_o, res_t):
             assert set(a) == set(b)
@@ -234,6 +240,7 @@ def _assert_same_windows(windows, encode=False):
                 np.testing.assert_array_equal(a[col], b[col])
         assert _units(units_o) == _units(units_t)
     assert _stats(ours) == _stats(theirs)
+    assert ours.stats.decode_out_bytes == out_bytes
     assert ours.stats.padded_byte_ratio == theirs.stats.padded_byte_ratio
     assert ours.jit_entries_by_kind() == theirs.jit_entries_by_kind()
     return ours

@@ -2835,7 +2835,7 @@ class ObjectGateway:
                 ]
                 nbytes = sum(self.store.blocks[key].nbytes for key in held)
                 with host.span("repair.verify", nbytes, group=gid):
-                    bad = [key for key in held if not self.store.verify(key)]
+                    bad = self.store.verify_many(held)
                 for key in bad:
                     self._note_corrupt(
                         key, at_time, report, source="repair",

@@ -13,6 +13,12 @@ copies and kernels, and four counters in the serving call's
   ``host_bytes{span=...}``   the bytes the span's work touched
   ``host_calls{span=...}``   how many times the span ran
 
+Besides spans, ``count`` adds to a plain counter of the same registry
+under the same rule, for what a span's work did inside it: the batched
+crc32 check (``storage/blockstore.py``) counts the blocks it hashed,
+``host_verify_blocks{path=pooled|inline}``, and the threads it hashed
+them on, ``host_verify_workers{span=...}`` under the innermost open span.
+
 Spans record only inside ``recording(metrics, root)``, which the serving
 entry point opens once per call, and only while a profiler is running.
 Everywhere else ``span()`` returns one shared no-op context, so an
@@ -20,7 +26,8 @@ untraced run pays one function call per span site and its reports gain
 no counters. The registry being recorded into is module state, as the
 profiler's own is: the span sites (the coalescer, the fixer) hold no
 handle to the call's report, and ``recording`` sets it and puts the
-previous one back. Single-threaded, as the gateway is.
+previous one back. Single-threaded, as the gateway is: worker threads
+neither open spans nor count.
 
 The range has function scope (``_RecordFunctionFast``), as an operator's
 has, and not the user scope of ``torch.profiler.record_function``: the
@@ -92,6 +99,18 @@ def span(name: str, nbytes: int = 0, **attrs):
     if _registry is None:
         return _NULL
     return _Span(name, nbytes, attrs)
+
+
+def count(name: str, value: float = 1, **labels) -> None:
+    """Add ``value`` to the counter ``name{labels}`` while recording,
+    else nothing."""
+    if _registry is not None:
+        _registry.counter(name, **labels).inc(value)
+
+
+def innermost() -> str | None:
+    """The name of the innermost open span while recording, else None."""
+    return _open[-1].name if _open else None
 
 
 @contextlib.contextmanager

@@ -15,6 +15,7 @@ wall clock.
 from __future__ import annotations
 
 import importlib
+import zlib
 from types import SimpleNamespace
 
 import pytest
@@ -157,6 +158,114 @@ def _quarantine(s):
 def test_quarantine_keeps_placement_and_digest_drop_block_delegates():
     ref, port = both(_quarantine)
     assert port == ref == (False, True, True, False)
+
+
+_BYTES = np.random.default_rng(5).integers(0, 256, 4096, dtype=np.uint8)
+DIGEST_CASES = {
+    "uint8_1d": _BYTES,
+    "block_2d": _BYTES.reshape(64, 64),
+    "strided": _BYTES.reshape(64, 64)[::3, 1::2],
+    "float32": _BYTES.view(np.float32).reshape(32, 32).T,
+    "empty": _BYTES[:0],
+}
+
+
+@pytest.mark.parametrize("case", DIGEST_CASES)
+def test_digest_hashes_in_place_as_the_reference_hashes_a_copy(case):
+    a = DIGEST_CASES[case]
+    want = zlib.crc32(np.asarray(a).tobytes())
+    assert SIDES["torch"].bs.BlockStore.digest(a) == want
+    assert SIDES["jax"].bs.BlockStore.digest(a) == want
+
+
+def _verify_store(s, q):
+    store = s.bs.BlockStore(num_nodes=30)
+    store.put_group("g0", np.random.default_rng(11).integers(0, 256, (2, 5, q), dtype=np.uint8))
+    return store
+
+
+def _damage(store, case):
+    """Keys in a fixed order, after ``case``'s damage to ``store``."""
+    keys = sorted(store.blocks)
+    if case in ("bitflip", "torn", "erase"):
+        store.corrupt_block(("g0", 0, 1), mode=case)
+        store.corrupt_block(("g0", 1, 3), mode=case)
+    elif case == "quarantined":
+        store.corrupt_block(("g0", 1, 0), mode="torn")
+        store.quarantine(("g0", 1, 0))
+    elif case == "no_digest":
+        store.corrupt_block(("g0", 0, 4), mode="bitflip")
+        del store.checksums[("g0", 0, 4)]
+    elif case == "mixed":
+        store.corrupt_block(("g0", 1, 4), mode="bitflip")
+        store.corrupt_block(("g0", 0, 0), mode="torn")
+        store.quarantine(("g0", 0, 2))
+        keys = keys[::-1] + [("g0", 9, 9)]
+    return keys
+
+
+# path -> (block bytes, CPUs the store sees); the pooled path hashes each
+# batch on min(CPUs, blocks) threads once it holds POOL_MIN_BYTES
+VERIFY_PATHS = {"inline": (4096, 4), "one_cpu": (2 << 20, 1), "pooled": (2 << 20, 4)}
+
+
+@pytest.mark.parametrize("case", ["clean", "bitflip", "torn", "erase", "quarantined",
+                                  "no_digest", "mixed"])
+@pytest.mark.parametrize("path", VERIFY_PATHS)
+def test_verify_many_returns_what_one_key_verify_returns(monkeypatch, path, case):
+    from repro_torch.obs import MetricsRegistry, host
+    from torch.profiler import ProfilerActivity, profile
+
+    q, cpus = VERIFY_PATHS[path]
+    bs = SIDES["torch"].bs
+    monkeypatch.setattr(bs, "_cpus", lambda: cpus)
+    assert (q * 10 >= bs.POOL_MIN_BYTES) == (path != "inline")
+    port, ref = _verify_store(SIDES["torch"], q), _verify_store(SIDES["jax"], q)
+    keys, ref_keys = _damage(port, case), _damage(ref, case)
+    assert keys == ref_keys
+    want = [k for k in keys if not ref.verify(k)]
+    assert want == [k for k in keys if not port.verify(k)]
+    reg = MetricsRegistry()
+    with profile(activities=[ProfilerActivity.CPU]), host.recording(reg, "test.root"):
+        got = port.verify_many(keys)
+    assert got == want
+    assert bool(got) == (case in ("bitflip", "torn", "mixed"))
+    hashed = sum(k in port.blocks and k in port.checksums for k in keys)
+    pooled = path == "pooled"
+    assert reg.counter_total("host_verify_blocks", path="pooled") == hashed * pooled
+    assert reg.counter_total("host_verify_blocks", path="inline") == hashed * (not pooled)
+    assert reg.counter_total("host_verify_workers", span="test.root") == (
+        min(cpus, hashed) if pooled else 1)
+
+
+def _repair_corrupt_source(s):
+    """A node's disk is lost while a surviving block of one of its
+    groups is silently corrupt: the repair's check must catch it."""
+    gw = _gateway(s, q=64 * 1024, batch_window=0.01, repair_on_failure=True,
+                  repair_delay=0.02, **MODELED)
+    lost = gw.store.node_of(("g0", 0, 0))
+    bad = next(k for k in sorted(gw.store.blocks)
+               if k[0] == "g0" and gw.store.node_of(k) != lost)
+    original = {k: blk.copy() for k, blk in gw.store.blocks.items()}
+    events = [s.wl.CorruptionEvent(time=0.005, node=gw.store.node_of(bad), blocks=(bad,),
+                                   mode="bitflip"),
+              s.wl.CapacityLossEvent(time=0.01, node=lost)]
+    report = gw.serve([], events)
+    return (bad, {k: b.tobytes() for k, b in original.items()},
+            {k: np.asarray(b).tobytes() for k, b in gw.store.blocks.items()},
+            _counters(report, "corruption_detected", source="repair"),
+            gw.audit_durability())
+
+
+def test_repair_quarantines_and_rebuilds_a_silently_corrupt_source(monkeypatch):
+    # four CPUs, so the group's 1.6 MiB check runs on the pool
+    monkeypatch.setattr(SIDES["torch"].bs, "_cpus", lambda: 4)
+    ref, port = both(_repair_corrupt_source)
+    bad, original, blocks, detected, audit = port
+    assert blocks == ref[2] == original
+    assert detected == ref[3] and detected["corruption_detected"] == 1
+    assert audit == ref[4] and audit["missing_blocks"] == 0
+    assert ref[0] == bad and blocks[bad] == original[bad]
 
 
 def _scrub(s):

@@ -1319,6 +1319,7 @@ def scenario_card_vs_cpu(np) -> dict[str, int]:
     CPU: deterministic fingerprints equal, no block lost. Returns the
     card runs' tile-kernel launches, summed."""
     from repro_torch.core.product_code import CoreCode
+    from repro_torch.kernels import _build
     from repro_torch.scenario import deterministic_fingerprint
 
     total = dict.fromkeys(TILE_NAMES, 0)
@@ -1328,10 +1329,11 @@ def scenario_card_vs_cpu(np) -> dict[str, int]:
     runs["gray[seed 0]"] = lambda dev: _gray_run(np, 0, dev)
     for label, run in runs.items():
         card, launches = run("cuda")
+        k5 = _build.LAUNCHES["gf256_matmul_planes"]  # BlockFixer's GF(256) steps
         cpu, _ = run("cpu")
         fp_card, fp_cpu = deterministic_fingerprint(card), deterministic_fingerprint(cpu)
         log(f"scenario {label}: card fingerprint {fp_card}, CPU {fp_cpu}; "
-            f"summary {json.dumps(card.summary())}; tile launches {launches}")
+            f"summary {json.dumps(card.summary())}; tile launches {launches}; K5 launches {k5}")
         if fp_card != fp_cpu:
             raise AssertionError(f"scenario {label}: card and CPU fingerprints differ")
         if card.blocks_lost or card.durability["unreadable_objects"]:
@@ -1498,7 +1500,8 @@ def checkpoint_full_width(np, torch, seed: int) -> None:
         f"from {fixed.blocks_fetched} fetched ({fixed.bytes_fetched} bytes), recovered "
         f"{fixed.recovered}; digests verified {len(store.blocks) - len(unverified)} of "
         f"{len(store.blocks)}; hand-written kernel launches over save, restore and repair "
-        f"{launches or 0} (the codec is plain torch)")
+        f"{launches or 0} (K5 for BlockFixer's GF(256) steps; its XOR and the codec plain "
+        f"torch)")
     if not fixed.recovered or unverified or lost or fixed.blocks_repaired != hit:
         raise AssertionError(f"checkpoint repair: recovered {fixed.recovered}, "
                              f"{len(unverified)} bad digests, {lost} still missing")
@@ -3088,9 +3091,10 @@ def examples_paths(torch) -> dict[str, int]:
     log(f"phase 14: {len(EXAMPLE_RUNS)} example runs in {time.perf_counter() - t_phase:.1f} s; "
         f"launches {launches}")
     # the gateway's GET and PUT windows run the tile kernels; the storage
-    # and training examples' codec (CoreCodec, BlockFixer, the CORE
-    # checkpoint) is plain torch on the card, as the reference's is jnp,
-    # so K5 and K7 are counted but not required
+    # and training examples' encode (CoreCodec, the CORE checkpoint) and
+    # BlockFixer's XOR are plain torch on the card, as the reference's are
+    # jnp, and BlockFixer's GF(256) steps launch K5 only where a repair
+    # takes one, so K5 and K7 are counted but not required
     used = {"ragged_gf256_tiles", "ragged_xor_tiles", "ragged_gf256_encode_tiles",
             "ragged_xor_encode_tiles"}
     idle = sorted(k for k in used if not launches[k])

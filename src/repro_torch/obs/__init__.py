@@ -102,14 +102,25 @@ brackets read them.
   ``repair.verify``        ``_background_repair``'s crc32 of a group's
                            stored blocks; bytes verified
                            [repair.verify_ms_per_GiB]
+  ``repair.plan``          ``BlockFixer._fix_family``: a row family's
+                           ``repair_plan`` and each global step's
+                           ``repair_matrix`` (the host's GF(256)
+                           inverse); bytes the plan rebuilds
+                           [repair.plan_ms_per_GiB]
   ``repair.fetch``         ``BlockFixer``: ``np.stack`` of the sources'
-                           ``store.get``; bytes fetched
+                           ``store.get`` (a row family's into the reused
+                           pinned staging buffer); bytes fetched
                            [repair.fetch_ms_per_GiB]
   ``repair.codec``         the sources' copy to the device through the
                            rebuilt block's copy back; bytes rebuilt
                            [repair.device_wait_ms_per_GiB]
   ``repair.put``           ``store.put_block`` of a rebuilt block (its
                            crc32); bytes written  [repair.put_ms_per_GiB]
+
+Counter ``repair_codec_bytes{op=gf256|xor}`` (``host.count``, same rule):
+the bytes the repair codec's products read and wrote, sources plus
+output: 7 blocks per block an RS (9, 6) step rebuilds, 4 per block of
+CORE's XOR over t = 3.
 
 Sampling: ``Tracer(sample=...)`` takes ``"always"``, ``"head:N"``,
 ``"tail:SECONDS"`` or comma-combinations (keep if ANY matches), so

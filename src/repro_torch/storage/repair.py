@@ -35,6 +35,7 @@ from repro_torch.core.failure_matrix import independent_clusters
 from repro_torch.core.product_code import CoreCode, CoreCodec
 from repro_torch.core.recoverability import is_recoverable
 from repro_torch.core.scheduling import SCHEDULERS, RepairStep
+from repro_torch.kernels import ops as kernel_ops
 from repro_torch.kernels.backend import as_u8, resolve_device, synchronize
 from repro_torch.obs import host
 from repro_torch.storage.blockstore import BlockStore
@@ -212,6 +213,10 @@ class BlockFixer:
         self.codec = CoreCodec(self.code, device=self.device)
         self._dev = resolve_device(self.device)
         self._timed = 0.0
+        # a row family's sources and rebuilt blocks pass through these
+        pinned = self._dev.type == "cuda"
+        self._sources = _Staging(pinned)
+        self._rebuilt = _Staging(pinned)
 
     def _obs_ctx(self) -> tuple | None:
         """(trace_id, parent_id) when span emission is live, else None."""
@@ -241,18 +246,32 @@ class BlockFixer:
 
     # -- timed codec ops ------------------------------------------------------
     def _measure(self, fn, *args):
-        """``fn(*args)`` on the device, the last of ``args`` the host
-        blocks it reads (copied there first), back as a host array; the
-        compute time billed is from the launch to the synchronize."""
+        """``fn(*args)`` on the device, the last of ``args`` the blocks it
+        reads: host arrays, copied there first and the result brought
+        back as a host array; or a staged tensor (``_stage``), copied
+        from the reused buffer without blocking the host, and the result
+        brought back through the other buffer into a host array of its
+        own. The compute time billed is from the launch to the
+        synchronize."""
         with host.span("repair.codec") as sp:
             *lead, blocks = args
-            blocks = as_u8(blocks, self._dev)
+            staged = isinstance(blocks, torch.Tensor)
+            if staged:
+                blocks = blocks.to(self._dev, non_blocking=True)
+                synchronize(self._dev)
+            else:
+                blocks = as_u8(blocks, self._dev)
             t0 = time.perf_counter()
             out = fn(*lead, blocks)
             synchronize(self._dev)
             self._timed += (time.perf_counter() - t0) * self.profile.compute_scale
             sp.nbytes = out.nbytes
-            return out.cpu().numpy()
+            if not staged:
+                return out.cpu().numpy()
+            back = self._rebuilt.take(out.nbytes).view(out.shape)
+            back.copy_(out, non_blocking=True)
+            synchronize(self._dev)
+            return back.numpy().copy()
 
     def _vertical_repair(self, sources: np.ndarray) -> np.ndarray:
         return self._measure(_xor_rows, sources)
@@ -263,7 +282,7 @@ class BlockFixer:
         row_ids, coeffs = self.code.horizontal.repair_matrix(avail_cols, missing_cols)
         pos = {int(a): i for i, a in enumerate(avail_cols)}
         sel = np.asarray([pos[int(r)] for r in row_ids])
-        return self._measure(gf256.matmul, coeffs, blocks[sel])
+        return self._measure(_gf256_product, coeffs, blocks[sel])
 
     # -- main entry ------------------------------------------------------------
     def fix_group(self, group_id: str, rows: int | None = None) -> RepairReport:
@@ -286,7 +305,8 @@ class BlockFixer:
         repair plan. LRC 'local' steps fetch ONLY the k/2 surviving
         members of the broken local group and XOR them — the locality
         win the bake-off bench measures against the RS baseline, whose
-        every repair is a 'global' k-source GF(256) decode."""
+        every repair is a 'global' k-source GF(256) decode. Each step's
+        sources are staged in one reused host buffer (``_stage``)."""
         fam = self.family
         report = RepairReport(mode=fam.name)
         cols = self.code.n
@@ -296,7 +316,22 @@ class BlockFixer:
         if not failed:
             return report
         sim = self._sim()
-        plan = fam.repair_plan(set(failed))
+        with host.span("repair.plan") as sp:
+            plan = fam.repair_plan(set(failed))
+            if plan is not None:
+                # a global step reads the rows its coefficients weigh (the
+                # plan's own sources: k independent survivors, in order)
+                steps = []
+                for kind, sources, repaired in plan:
+                    coeffs = None
+                    if kind != "local":
+                        sources, coeffs = fam.code.repair_matrix(
+                            np.asarray(sources), np.asarray(repaired)
+                        )
+                    steps.append((kind, [int(c) for c in sources], repaired, coeffs))
+                sp.nbytes = sum(len(r) for _, _, r, _ in steps) * self.store.get(
+                    (group_id, 0, steps[0][1][0])
+                ).nbytes
         if plan is None:
             report.recovered = False
             report.network_time = self._net_time(sim)
@@ -306,10 +341,11 @@ class BlockFixer:
         # a block repaired by an earlier step may serve as a later step's
         # source; its bytes exist only once its own fetches landed
         repaired_ready: dict[int, float] = {}
-        for kind, sources, repaired in plan:
+        for kind, sources, repaired, coeffs in steps:
             with host.span("repair.fetch") as sp:
-                blocks = np.stack([self.store.get((group_id, 0, c)) for c in sources])
+                blocks = self._stage(group_id, sources)
                 sp.nbytes = blocks.nbytes
+            block_bytes = blocks.nbytes // len(sources)
             dst = self._dst_node(group_id, 0, repaired[0])
             ready = 0.0
             for c in sources:
@@ -320,7 +356,7 @@ class BlockFixer:
                         Transfer(
                             src_node,
                             dst,
-                            blocks[0].nbytes,
+                            block_bytes,
                             max(repaired_ready.get(c, 0.0), self.not_before),
                             priority=self.priority,
                             ctx=ctx,
@@ -328,11 +364,9 @@ class BlockFixer:
                     ),
                 )
             if kind == "local":
-                rep = self._vertical_repair(blocks)[None]
+                rep = self._measure(_xor_rows, blocks)[None]
             else:
-                rep = self._family_global_repair(
-                    np.asarray(sources), blocks, np.asarray(repaired)
-                )
+                rep = self._measure(_gf256_product, coeffs, blocks)
             for i, c in enumerate(repaired):
                 with host.span("repair.put", rep[i].nbytes):
                     self.store.put_block((group_id, 0, c), rep[i])
@@ -358,16 +392,18 @@ class BlockFixer:
         self._emit_group_span(group_id, sim, report)
         return report
 
-    def _family_global_repair(
-        self, sources: np.ndarray, blocks: np.ndarray, missing: np.ndarray
-    ) -> np.ndarray:
-        """GF(256) repair through the family's own generator (LRC's
-        global parities are not the plain RS rows, so this cannot reuse
-        ``code.horizontal``)."""
-        row_ids, coeffs = self.family.code.repair_matrix(sources, missing)
-        pos = {int(a): i for i, a in enumerate(sources)}
-        sel = np.asarray([pos[int(r)] for r in row_ids])
-        return self._measure(gf256.matmul, coeffs, blocks[sel])
+    def _stage(self, group_id: str, sources: list[int]) -> torch.Tensor:
+        """Row 0's ``sources`` gathered into the reused source buffer
+        (pinned when the codec runs on the card, so their copy there is a
+        DMA from it): a (sources, q) view, overwritten by the next step.
+        The buffer is made at k blocks and grown only for a larger step."""
+        arrays = [self.store.get((group_id, 0, c)) for c in sources]
+        shape = (len(arrays), *arrays[0].shape)
+        nbytes = len(arrays) * arrays[0].nbytes
+        staged = self._sources.take(nbytes, least=self.code.k * arrays[0].nbytes)
+        staged = staged.view(shape)
+        np.stack(arrays, out=staged.numpy())
+        return staged
 
     # -- HDFS-RAID modes --------------------------------------------------------
     def _fix_raid(self, group_id: str, rows: int, cols: int, optimized: bool) -> RepairReport:
@@ -640,8 +676,40 @@ class BlockFixer:
 # -- codec math (shared, cached) ------------------------------------------------
 
 
+class _Staging:
+    """A host buffer reused from one repair step to the next, grown only
+    when a step needs more; pinned when the codec runs on the card."""
+
+    def __init__(self, pinned: bool):
+        self.pinned = pinned
+        self.buf: torch.Tensor | None = None
+
+    def take(self, nbytes: int, least: int = 0) -> torch.Tensor:
+        """The first ``nbytes`` of the buffer, made at ``max(nbytes,
+        least)`` bytes where it is missing or too small."""
+        if self.buf is None or self.buf.numel() < nbytes:
+            self.buf = None  # the smaller buffer goes before the larger is made
+            self.buf = torch.empty(
+                max(nbytes, least), dtype=torch.uint8, pin_memory=self.pinned
+            )
+        return self.buf[:nbytes]
+
+
 def _xor_rows(blocks: torch.Tensor) -> torch.Tensor:
+    host.count("repair_codec_bytes", blocks.nbytes + blocks[0].nbytes, op="xor")
     return gf256.xor_reduce(blocks, axis=0)
+
+
+def _gf256_product(coeffs: np.ndarray, sources: torch.Tensor) -> torch.Tensor:
+    """The GF(256) repair product coeffs (M, K) @ sources (K, q): K5
+    (``kernels.ops.gf256_matmul``) for sources on the card, the plain
+    ``coding.gf256.matmul`` for sources on the CPU; the same bytes."""
+    host.count(
+        "repair_codec_bytes", sources.nbytes + len(coeffs) * sources[0].nbytes, op="gf256"
+    )
+    if sources.device.type == "cuda":
+        return kernel_ops.gf256_matmul(coeffs, sources)
+    return gf256.matmul(coeffs, sources)
 
 
 _DECODE_CACHE: dict = {}

@@ -120,7 +120,10 @@ brackets read them.
 Counter ``repair_codec_bytes{op=gf256|xor}`` (``host.count``, same rule):
 the bytes the repair codec's products read and wrote, sources plus
 output: 7 blocks per block an RS (9, 6) step rebuilds, 4 per block of
-CORE's XOR over t = 3.
+CORE's XOR over t = 3. Counter ``host_crc32_bytes{impl=fold|zlib}``
+(``storage/blockstore.py``, same rule): the bytes every digest hashed,
+by the carry-less-multiply fold of ``storage/crc32.py`` or by zlib
+[integrity.crc32_fold_pct].
 
 Sampling: ``Tracer(sample=...)`` takes ``"always"``, ``"head:N"``,
 ``"tail:SECONDS"`` or comma-combinations (keep if ANY matches), so

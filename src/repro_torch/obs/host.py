@@ -17,7 +17,9 @@ Besides spans, ``count`` adds to a plain counter of the same registry
 under the same rule, for what a span's work did inside it: the batched
 crc32 check (``storage/blockstore.py``) counts the blocks it hashed,
 ``host_verify_blocks{path=pooled|inline}``, and the threads it hashed
-them on, ``host_verify_workers{span=...}`` under the innermost open span.
+them on, ``host_verify_workers{span=...}`` under the innermost open span;
+every digest counts the bytes it hashed by the routine that hashed them,
+``host_crc32_bytes{impl=fold|zlib}``.
 
 Spans record only inside ``recording(metrics, root)``, which the serving
 entry point opens once per call, and only while a profiler is running.

@@ -18,9 +18,11 @@ Data lives in host numpy (this is the "disk"); codec math runs in torch.
 
 Integrity plane: every stored block carries a crc32 digest computed at
 PUT time (``checksums``), read straight from the array's buffer with no
-copy. ``verify`` recomputes a block's digest against the stored one, and
-``verify_many`` does so for a batch of blocks on host threads — a
-mismatch means SILENT corruption (a bit flip or torn write injected by
+copy, by the carry-less-multiply fold of ``crc32.py`` where the host
+runs it, else by zlib (the integer is zlib's either way). ``verify``
+recomputes a block's digest against the stored one, and ``verify_many``
+does so for a batch of blocks on host threads — a mismatch means
+SILENT corruption (a bit flip or torn write injected by
 ``corrupt_block`` leaves the stored digest stale on purpose, exactly
 like a disk returning bad bytes under a good extent map). The gateway
 reclassifies a verify failure as an erasure: ``quarantine`` removes the
@@ -39,12 +41,13 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.obs import host
+from repro_torch.storage import crc32
 
 BlockKey = tuple[str, int, int]  # (group_id, row, col)
 
 # A batch of fewer bytes than this is hashed on the calling thread: at
-# zlib's 1-2 GiB/s a thread on x86-64, 1 MiB is 0.5-1 ms of crc32,
-# several times what handing it to the pool and waiting for it cost.
+# the fold's 5.5-9 GB/s a thread (zlib's 1.8-2.7), 1 MiB is 0.1-0.2 ms
+# of crc32, more than handing it to the pool and waiting for it cost.
 POOL_MIN_BYTES = 1 << 20
 
 _pool: ThreadPoolExecutor | None = None  # the crc32 workers, made on first use
@@ -79,26 +82,41 @@ def _as_bytes(data) -> np.ndarray:
     return a.reshape(-1).view(np.uint8)
 
 
-def _crc32_all(views: list[np.ndarray]) -> list[int]:
-    return [zlib.crc32(v) for v in views]  # releases the GIL above 5 KiB
+def _count(views: list[np.ndarray], fn) -> None:
+    """Count the bytes ``views`` hash, ``host_crc32_bytes{impl=fold|zlib}``."""
+    folded = sum(v.nbytes for v in views if crc32.folds(v, fn))
+    rest = sum(v.nbytes for v in views) - folded
+    if folded:
+        host.count("host_crc32_bytes", folded, impl="fold")
+    if rest:
+        host.count("host_crc32_bytes", rest, impl="zlib")
+
+
+def _crc32_all(views: list[np.ndarray], fn) -> list[int]:
+    return [crc32.crc32(v, fn) for v in views]  # ctypes, and zlib above 5 KiB, release the GIL
 
 
 def crc32_many(arrays: list) -> list[int]:
-    """``BlockStore.digest`` of each of ``arrays``, in order. The crc32s
-    run on ``min(CPUs, len(arrays))`` pool threads at most, one contiguous
-    share of the list each, unless there is one CPU or one array, or the batch
-    holds fewer than ``POOL_MIN_BYTES``; then on the calling thread."""
+    """``BlockStore.digest`` of each of ``arrays``, in order, by the fold
+    where the host runs it, else by zlib. The crc32s run on
+    ``min(CPUs, len(arrays))`` pool threads at most, one contiguous share
+    of the list each, unless there is one CPU or one array, or the batch
+    holds fewer than ``POOL_MIN_BYTES``; then on the calling thread, which
+    also builds the fold's library at first use."""
     views = [_as_bytes(a) for a in arrays]
+    fn = crc32.fold()
+    _count(views, fn)
     width = min(_cpus(), len(views))
     if width <= 1 or sum(v.nbytes for v in views) < POOL_MIN_BYTES:
         host.count("host_verify_blocks", len(views), path="inline")
         host.count("host_verify_workers", 1, span=host.innermost())
-        return _crc32_all(views)
+        return _crc32_all(views, fn)
     bounds = [len(views) * i // width for i in range(width + 1)]
     shares = [views[lo:hi] for lo, hi in zip(bounds, bounds[1:])]
     host.count("host_verify_blocks", len(views), path="pooled")
     host.count("host_verify_workers", width, span=host.innermost())
-    return [crc for share in _workers().map(_crc32_all, shares) for crc in share]
+    hashed = _workers().map(_crc32_all, shares, [fn] * len(shares))
+    return [crc for share in hashed for crc in share]
 
 
 class PlacementError(RuntimeError):
@@ -127,8 +145,13 @@ class BlockStore:
     @staticmethod
     def digest(data: np.ndarray) -> int:
         """zlib's crc32 of a block's bytes in C order, hashed in place
-        (equal to ``zlib.crc32(np.asarray(data).tobytes())``)."""
-        return zlib.crc32(_as_bytes(data))
+        (equal to ``zlib.crc32(np.asarray(data).tobytes())``): by the
+        carry-less-multiply fold of ``crc32.py`` from its
+        ``FOLD_MIN_BYTES`` up where the host runs it, else by zlib."""
+        view = _as_bytes(data)
+        fn = crc32.fold()
+        _count([view], fn)
+        return crc32.crc32(view, fn)
 
     # -- placement -----------------------------------------------------------
     def _place_group(self, group_id: str, rows: int, cols: int) -> None:

@@ -209,16 +209,22 @@ def _damage(store, case):
 VERIFY_PATHS = {"inline": (4096, 4), "one_cpu": (2 << 20, 1), "pooled": (2 << 20, 4)}
 
 
+@pytest.mark.parametrize("impl", ["fold", "zlib"])
 @pytest.mark.parametrize("case", ["clean", "bitflip", "torn", "erase", "quarantined",
                                   "no_digest", "mixed"])
 @pytest.mark.parametrize("path", VERIFY_PATHS)
-def test_verify_many_returns_what_one_key_verify_returns(monkeypatch, path, case):
+def test_verify_many_returns_what_one_key_verify_returns(monkeypatch, path, case, impl):
+    """``impl``: the crc32 the host would take, or zlib's as on a host
+    without the fold; blocks under ``FOLD_MIN_BYTES`` take zlib's anyway."""
     from repro_torch.obs import MetricsRegistry, host
+    from repro_torch.storage import crc32
     from torch.profiler import ProfilerActivity, profile
 
     q, cpus = VERIFY_PATHS[path]
     bs = SIDES["torch"].bs
     monkeypatch.setattr(bs, "_cpus", lambda: cpus)
+    if impl == "zlib":
+        monkeypatch.setattr(crc32, "fast_path", lambda: False)
     assert (q * 10 >= bs.POOL_MIN_BYTES) == (path != "inline")
     port, ref = _verify_store(SIDES["torch"], q), _verify_store(SIDES["jax"], q)
     keys, ref_keys = _damage(port, case), _damage(ref, case)
@@ -236,6 +242,9 @@ def test_verify_many_returns_what_one_key_verify_returns(monkeypatch, path, case
     assert reg.counter_total("host_verify_blocks", path="inline") == hashed * (not pooled)
     assert reg.counter_total("host_verify_workers", span="test.root") == (
         min(cpus, hashed) if pooled else 1)
+    folded = impl == "fold" and crc32.fast_path() and q >= crc32.FOLD_MIN_BYTES
+    assert reg.counter_total("host_crc32_bytes", impl="fold") == hashed * q * folded
+    assert reg.counter_total("host_crc32_bytes", impl="zlib") == hashed * q * (not folded)
 
 
 def _repair_corrupt_source(s):

@@ -107,22 +107,22 @@ brackets read them.
                            ``repair_matrix`` (the host's GF(256)
                            inverse); bytes the plan rebuilds
                            [repair.plan_ms_per_GiB]
-  ``repair.fetch``         ``BlockFixer``: ``np.stack`` of the sources'
-                           ``store.get`` (a row family's into the reused
-                           pinned staging buffer); bytes fetched
-                           [repair.fetch_ms_per_GiB]
-  ``repair.codec``         the sources' copy to the device through the
-                           rebuilt block's copy back; bytes rebuilt
+  ``repair.fetch``         ``BlockFixer._stage``: the sources of every
+                           codec step read with ``store.get`` and gathered
+                           into the reused staging buffer (pinned on the
+                           card); bytes gathered [repair.fetch_ms_per_GiB]
+  ``repair.codec``         ``BlockFixer._measure``: the staged sources'
+                           copy to the device, the XOR or GF(256)
+                           product, the result's copy back through the
+                           second reused buffer into an array of its
+                           own; bytes rebuilt
                            [repair.device_wait_ms_per_GiB]
   ``repair.put``           ``store.put_block`` of a rebuilt block (its
                            crc32); bytes written  [repair.put_ms_per_GiB]
 
-Counter ``repair_codec_bytes{op=gf256|xor}`` (``host.count``, same rule):
-the bytes the repair codec's products read and wrote, sources plus
-output: 7 blocks per block an RS (9, 6) step rebuilds, 4 per block of
-CORE's XOR over t = 3. Counter ``host_crc32_bytes{impl=fold|zlib}``
-(``storage/blockstore.py``, same rule): the bytes every digest hashed,
-by the carry-less-multiply fold of ``storage/crc32.py`` or by zlib
+Counter ``host_crc32_bytes{impl=fold|zlib}`` (``storage/blockstore.py``,
+``host.count``, same rule): the bytes every digest hashed, by the
+carry-less-multiply fold of ``storage/crc32.py`` or by zlib
 [integrity.crc32_fold_pct].
 
 Sampling: ``Tracer(sample=...)`` takes ``"always"``, ``"head:N"``,

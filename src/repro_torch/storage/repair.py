@@ -36,7 +36,7 @@ from repro_torch.core.product_code import CoreCode, CoreCodec
 from repro_torch.core.recoverability import is_recoverable
 from repro_torch.core.scheduling import SCHEDULERS, RepairStep
 from repro_torch.kernels import ops as kernel_ops
-from repro_torch.kernels.backend import as_u8, resolve_device, synchronize
+from repro_torch.kernels.backend import resolve_device, synchronize
 from repro_torch.obs import host
 from repro_torch.storage.blockstore import BlockStore
 from repro_torch.storage.netmodel import ClusterProfile, NetSimulator, Transfer
@@ -213,7 +213,7 @@ class BlockFixer:
         self.codec = CoreCodec(self.code, device=self.device)
         self._dev = resolve_device(self.device)
         self._timed = 0.0
-        # a row family's sources and rebuilt blocks pass through these
+        # every codec step's sources and rebuilt blocks pass through these
         pinned = self._dev.type == "cuda"
         self._sources = _Staging(pinned)
         self._rebuilt = _Staging(pinned)
@@ -245,44 +245,48 @@ class BlockFixer:
         return max(0.0, end - start)
 
     # -- timed codec ops ------------------------------------------------------
+    def _stage(self, keys: list) -> torch.Tensor:
+        """The blocks ``keys`` gathered, in that order, into the reused
+        source buffer (pinned when the codec runs on the card, so their
+        copy there is a DMA from it): a (sources, q) view, overwritten by
+        the next step. The buffer is made at k blocks and grown only for
+        a larger step."""
+        with host.span("repair.fetch") as sp:
+            arrays = [self.store.get(key) for key in keys]
+            sp.nbytes = nbytes = len(arrays) * arrays[0].nbytes
+            staged = self._sources.take(nbytes, least=self.code.k * arrays[0].nbytes)
+            staged = staged.view(len(arrays), *arrays[0].shape)
+            np.stack(arrays, out=staged.numpy())
+        return staged
+
     def _measure(self, fn, *args):
-        """``fn(*args)`` on the device, the last of ``args`` the blocks it
-        reads: host arrays, copied there first and the result brought
-        back as a host array; or a staged tensor (``_stage``), copied
-        from the reused buffer without blocking the host, and the result
-        brought back through the other buffer into a host array of its
-        own. The compute time billed is from the launch to the
-        synchronize."""
+        """``fn(*args)`` on the device, the last of ``args`` a staged tensor
+        (``_stage``): copied from the reused buffer without blocking the
+        host, and the result brought back through the other buffer into a
+        host array of its own. The compute time billed is from the launch
+        to the synchronize."""
         with host.span("repair.codec") as sp:
-            *lead, blocks = args
-            staged = isinstance(blocks, torch.Tensor)
-            if staged:
-                blocks = blocks.to(self._dev, non_blocking=True)
-                synchronize(self._dev)
-            else:
-                blocks = as_u8(blocks, self._dev)
+            *lead, staged = args
+            blocks = staged.to(self._dev, non_blocking=True)
+            synchronize(self._dev)
             t0 = time.perf_counter()
             out = fn(*lead, blocks)
             synchronize(self._dev)
             self._timed += (time.perf_counter() - t0) * self.profile.compute_scale
             sp.nbytes = out.nbytes
-            if not staged:
-                return out.cpu().numpy()
             back = self._rebuilt.take(out.nbytes).view(out.shape)
             back.copy_(out, non_blocking=True)
             synchronize(self._dev)
             return back.numpy().copy()
 
-    def _vertical_repair(self, sources: np.ndarray) -> np.ndarray:
-        return self._measure(_xor_rows, sources)
+    def _xor(self, keys: list) -> np.ndarray:
+        """The XOR of the blocks ``keys``: one block, (1, q)."""
+        return self._measure(_xor_rows, self._stage(keys))
 
-    def _horizontal_repair(
-        self, avail_cols: np.ndarray, blocks: np.ndarray, missing_cols: np.ndarray
-    ) -> np.ndarray:
-        row_ids, coeffs = self.code.horizontal.repair_matrix(avail_cols, missing_cols)
-        pos = {int(a): i for i, a in enumerate(avail_cols)}
-        sel = np.asarray([pos[int(r)] for r in row_ids])
-        return self._measure(_gf256_product, coeffs, blocks[sel])
+    def _product(self, coeffs: np.ndarray, keys: list) -> np.ndarray:
+        """coeffs (M, K) @ the K blocks ``keys`` over GF(256), the keys in
+        the order the coefficients weigh them: (M, q)."""
+        return self._measure(_gf256_product, coeffs, self._stage(keys))
 
     # -- main entry ------------------------------------------------------------
     def fix_group(self, group_id: str, rows: int | None = None) -> RepairReport:
@@ -306,7 +310,7 @@ class BlockFixer:
         members of the broken local group and XOR them — the locality
         win the bake-off bench measures against the RS baseline, whose
         every repair is a 'global' k-source GF(256) decode. Each step's
-        sources are staged in one reused host buffer (``_stage``)."""
+        sources are staged in the reused host buffer (``_stage``)."""
         fam = self.family
         report = RepairReport(mode=fam.name)
         cols = self.code.n
@@ -342,10 +346,8 @@ class BlockFixer:
         # source; its bytes exist only once its own fetches landed
         repaired_ready: dict[int, float] = {}
         for kind, sources, repaired, coeffs in steps:
-            with host.span("repair.fetch") as sp:
-                blocks = self._stage(group_id, sources)
-                sp.nbytes = blocks.nbytes
-            block_bytes = blocks.nbytes // len(sources)
+            keys = [(group_id, 0, c) for c in sources]
+            block_bytes = self.store.get(keys[0]).nbytes
             dst = self._dst_node(group_id, 0, repaired[0])
             ready = 0.0
             for c in sources:
@@ -363,10 +365,7 @@ class BlockFixer:
                         )
                     ),
                 )
-            if kind == "local":
-                rep = self._measure(_xor_rows, blocks)[None]
-            else:
-                rep = self._measure(_gf256_product, coeffs, blocks)
+            rep = self._xor(keys) if kind == "local" else self._product(coeffs, keys)
             for i, c in enumerate(repaired):
                 with host.span("repair.put", rep[i].nbytes):
                     self.store.put_block((group_id, 0, c), rep[i])
@@ -383,7 +382,7 @@ class BlockFixer:
                         )
                     )
             report.blocks_fetched += len(sources)
-            report.bytes_fetched += int(blocks.nbytes)
+            report.bytes_fetched += len(sources) * block_bytes
             report.blocks_repaired += len(repaired)
             descs.append(f"{'L' if kind == 'local' else 'G'}x{len(repaired)}")
         report.network_time = self._net_time(sim)
@@ -391,19 +390,6 @@ class BlockFixer:
         report.schedule = ",".join(descs)
         self._emit_group_span(group_id, sim, report)
         return report
-
-    def _stage(self, group_id: str, sources: list[int]) -> torch.Tensor:
-        """Row 0's ``sources`` gathered into the reused source buffer
-        (pinned when the codec runs on the card, so their copy there is a
-        DMA from it): a (sources, q) view, overwritten by the next step.
-        The buffer is made at k blocks and grown only for a larger step."""
-        arrays = [self.store.get((group_id, 0, c)) for c in sources]
-        shape = (len(arrays), *arrays[0].shape)
-        nbytes = len(arrays) * arrays[0].nbytes
-        staged = self._sources.take(nbytes, least=self.code.k * arrays[0].nbytes)
-        staged = staged.view(shape)
-        np.stack(arrays, out=staged.numpy())
-        return staged
 
     # -- HDFS-RAID modes --------------------------------------------------------
     def _fix_raid(self, group_id: str, rows: int, cols: int, optimized: bool) -> RepairReport:
@@ -433,11 +419,7 @@ class BlockFixer:
                     fetch_cols = avail[: self.code.k]  # Opt1: exactly k
                 else:
                     fetch_cols = avail  # classic: ALL remaining blocks
-                with host.span("repair.fetch") as sp:
-                    blocks = np.stack(
-                        [self._get(group_id, r, c, repaired_cells) for c in fetch_cols]
-                    )
-                    sp.nbytes = blocks.nbytes
+                block_bytes = self.store.get((group_id, r, fetch_cols[0])).nbytes
                 dst = self._dst_node(group_id, r, batch[0])
                 ready = 0.0
                 for c in fetch_cols:
@@ -448,17 +430,18 @@ class BlockFixer:
                             Transfer(
                                 src,
                                 dst,
-                                blocks[0].nbytes,
+                                block_bytes,
                                 self.not_before,
                                 priority=self.priority,
                             )
                         ),
                     )
-                rep = self._horizontal_repair(
-                    np.asarray(fetch_cols[: self.code.k]),
-                    blocks[: self.code.k],
-                    np.asarray(batch),
+                # the decode reads the first k blocks fetched; the classic
+                # mode fetches every survivor all the same
+                row_ids, coeffs = self.code.horizontal.repair_matrix(
+                    np.asarray(fetch_cols[: self.code.k]), np.asarray(batch)
                 )
+                rep = self._product(coeffs, [(group_id, r, int(c)) for c in row_ids])
                 for i, c in enumerate(batch):
                     with host.span("repair.put", rep[i].nbytes):
                         self.store.put_block((group_id, r, c), rep[i])
@@ -466,7 +449,7 @@ class BlockFixer:
                     if self.on_block_repaired is not None:
                         self.on_block_repaired((group_id, r, c))
                 report.blocks_fetched += len(fetch_cols)
-                report.bytes_fetched += sum(b.nbytes for b in blocks)
+                report.bytes_fetched += len(fetch_cols) * block_bytes
                 report.blocks_repaired += len(batch)
                 sched_desc.append(f"H{r}x{len(batch)}")
         report.network_time = self._net_time(sim)
@@ -532,9 +515,7 @@ class BlockFixer:
         report: RepairReport,
     ) -> None:
         srcs = [(r, c) for (r, c) in step.sources]
-        with host.span("repair.fetch") as sp:
-            blocks = np.stack([self.store.get((group_id, r, c)) for r, c in srcs])
-            sp.nbytes = blocks.nbytes
+        block_bytes = self.store.get((group_id, *srcs[0])).nbytes
         dst_cell = step.repairs[0]
         dst = self._dst_node(group_id, *dst_cell)
         ctx = self._obs_ctx()
@@ -547,7 +528,7 @@ class BlockFixer:
                     Transfer(
                         src_node,
                         dst,
-                        blocks[0].nbytes,
+                        block_bytes,
                         max(block_ready.get((r, c), 0.0), self.not_before),
                         priority=self.priority,
                         ctx=ctx,
@@ -566,11 +547,13 @@ class BlockFixer:
                 blocks=len(srcs),
             )
         if step.kind == "V":
-            rep = self._vertical_repair(blocks)[None]
+            rep = self._xor([(group_id, r, c) for r, c in srcs])
         else:
-            avail_cols = np.asarray([c for (_, c) in srcs])
-            missing_cols = np.asarray([c for (_, c) in step.repairs])
-            rep = self._horizontal_repair(avail_cols, blocks, missing_cols)
+            row_ids, coeffs = self.code.horizontal.repair_matrix(
+                np.asarray([c for (_, c) in srcs]),
+                np.asarray([c for (_, c) in step.repairs]),
+            )
+            rep = self._product(coeffs, [(group_id, step.index, int(c)) for c in row_ids])
         for i, cell in enumerate(step.repairs):
             with host.span("repair.put", rep[i].nbytes):
                 self.store.put_block((group_id, cell[0], cell[1]), rep[i])
@@ -587,7 +570,7 @@ class BlockFixer:
                     )
                 )
         report.blocks_fetched += len(srcs)
-        report.bytes_fetched += int(blocks.nbytes)
+        report.bytes_fetched += len(srcs) * block_bytes
         report.blocks_repaired += len(step.repairs)
 
     # -- degraded read -------------------------------------------------------------
@@ -625,14 +608,15 @@ class BlockFixer:
             if len(avail_row) < k:
                 raise UnrecoverableError(f"row {row} of {group_id} lost")
             fetch = avail_row[:k]
-            blocks = np.stack([self.store.get((group_id, row, c)) for c in fetch])
+            block_bytes = self.store.get((group_id, row, fetch[0])).nbytes
             for c in fetch:
                 sim.transfer(
-                    Transfer(self.store.node_of((group_id, row, c)), -1, blocks[0].nbytes)
+                    Transfer(self.store.node_of((group_id, row, c)), -1, block_bytes)
                 )
             report.blocks_fetched += len(fetch)
-            report.bytes_fetched += int(blocks.nbytes)
-            data = self._measure(_decoder(self.code, tuple(fetch)), blocks)
+            report.bytes_fetched += len(fetch) * block_bytes
+            row_ids, inverse = _decode_matrix(self.code, tuple(fetch))
+            data = self._product(inverse, [(group_id, row, int(c)) for c in row_ids])
         else:
             got: dict[int, np.ndarray] = {}
             for c in range(k):
@@ -644,23 +628,20 @@ class BlockFixer:
                     report.bytes_fetched += b.nbytes
             for c in missing:
                 srcs = [r for r in range(self.code.rows) if r != row]
-                blocks = np.stack([self.store.get((group_id, r, c)) for r in srcs])
+                block_bytes = self.store.get((group_id, srcs[0], c)).nbytes
                 for r in srcs:
                     sim.transfer(
-                        Transfer(self.store.node_of((group_id, r, c)), -1, blocks[0].nbytes)
+                        Transfer(self.store.node_of((group_id, r, c)), -1, block_bytes)
                     )
                 report.blocks_fetched += len(srcs)
-                report.bytes_fetched += int(blocks.nbytes)
-                got[c] = self._vertical_repair(blocks)
+                report.bytes_fetched += len(srcs) * block_bytes
+                got[c] = self._xor([(group_id, r, c) for r in srcs])[0]
             data = np.stack([got[c] for c in range(k)])
         report.network_time = sim.makespan
         report.compute_time = self._timed
         return data, report
 
     # -- helpers ----------------------------------------------------------------
-    def _get(self, group_id: str, r: int, c: int, repaired: set[int]) -> np.ndarray:
-        return self.store.get((group_id, r, c))
-
     def _dst_node(self, group_id: str, r: int, c: int) -> int:
         used = {
             self.store.placement[key]
@@ -696,17 +677,13 @@ class _Staging:
 
 
 def _xor_rows(blocks: torch.Tensor) -> torch.Tensor:
-    host.count("repair_codec_bytes", blocks.nbytes + blocks[0].nbytes, op="xor")
-    return gf256.xor_reduce(blocks, axis=0)
+    return gf256.xor_reduce(blocks, axis=0)[None]
 
 
 def _gf256_product(coeffs: np.ndarray, sources: torch.Tensor) -> torch.Tensor:
     """The GF(256) repair product coeffs (M, K) @ sources (K, q): K5
     (``kernels.ops.gf256_matmul``) for sources on the card, the plain
     ``coding.gf256.matmul`` for sources on the CPU; the same bytes."""
-    host.count(
-        "repair_codec_bytes", sources.nbytes + len(coeffs) * sources[0].nbytes, op="gf256"
-    )
     if sources.device.type == "cuda":
         return kernel_ops.gf256_matmul(coeffs, sources)
     return gf256.matmul(coeffs, sources)
@@ -715,17 +692,11 @@ def _gf256_product(coeffs: np.ndarray, sources: torch.Tensor) -> torch.Tensor:
 _DECODE_CACHE: dict = {}
 
 
-def _decoder(code: CoreCode, fetch_cols: tuple[int, ...]):
-    """Message blocks (k, q) from the fetched columns' blocks, through the
-    decode inverse of that column set (cached per (n, k, columns))."""
-    key = (code.n, code.k, fetch_cols)
+def _decode_matrix(code: CoreCode, cols: tuple[int, ...]) -> tuple[np.ndarray, np.ndarray]:
+    """(row order, inverse) of the row decode from the columns ``cols``:
+    message blocks (k, q) = inverse @ those columns' blocks in that row
+    order (cached per (n, k, columns))."""
+    key = (code.n, code.k, cols)
     if key not in _DECODE_CACHE:
-        row_ids, inverse = code.horizontal.decode_matrix(np.asarray(fetch_cols))
-        pos = {int(a): i for i, a in enumerate(fetch_cols)}
-        sel = [pos[int(r)] for r in row_ids]
-
-        def _decode(blocks: torch.Tensor) -> torch.Tensor:
-            return gf256.matmul(inverse, blocks[sel])
-
-        _DECODE_CACHE[key] = _decode
+        _DECODE_CACHE[key] = code.horizontal.decode_matrix(np.asarray(cols))
     return _DECODE_CACHE[key]

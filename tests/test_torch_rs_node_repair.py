@@ -7,8 +7,8 @@ and generator); the GF(256) repair product goes to K5
 ``coding.gf256.matmul`` for sources on the CPU, with the same bytes;
 CORE's horizontal step still rebuilds byte for byte; a rebuilt block is
 stored as an array of its own, not a view of the reused staging
-buffers; and under a profiler ``repair.plan`` and
-``repair_codec_bytes`` record what the repair did, untraced nothing."""
+buffers; and under a profiler ``repair.plan`` records what the repair
+did, untraced nothing, the repair itself the same."""
 
 import numpy as np
 import pytest
@@ -178,10 +178,12 @@ def test_plan_span_and_codec_bytes_recorded_only_when_traced():
     assert steps == len(groups) == len(keys)
     assert m.counter_total("host_calls", span="repair.plan") == steps
     assert m.counter_total("host_bytes", span="repair.plan") == len(keys) * Q
-    assert m.counter_total("repair_codec_bytes", op="gf256") == 7 * Q * len(keys)
-    assert m.counter_total("repair_codec_bytes", op="xor") == 0
+    done = [(r.blocks_fetched, r.bytes_fetched, r.blocks_repaired, r.schedule)
+            for r in report.repair_reports if r.blocks_repaired]
+    assert done == [(K, K * Q, 1, "Gx1")] * steps
 
     gw2, _ = _gateway()
     _keys, plain = _lose(gw2, node)
     assert plain.metrics.counter_total("host_calls", span="repair.plan") == 0
-    assert plain.metrics.counter_total("repair_codec_bytes", op="gf256") == 0
+    assert [(r.blocks_fetched, r.bytes_fetched, r.blocks_repaired, r.schedule)
+            for r in plain.repair_reports if r.blocks_repaired] == done

@@ -32,6 +32,7 @@ def _side(pkg: str, dev: dict, gw_kw: dict) -> SimpleNamespace:
     mod = lambda name: importlib.import_module(f"{pkg}.{name}")  # noqa: E731
     return SimpleNamespace(pc=mod("core.product_code"), bs=mod("storage.blockstore"),
                            net=mod("storage.netmodel"), rep=mod("storage.repair"),
+                           planner=mod("gateway.planner"),
                            gw=mod("gateway"), dev=dev, gw_kw=gw_kw)
 
 
@@ -122,6 +123,74 @@ def test_fix_group_equal_and_fetch_counts(nkt, cells, mode, fetched):
     assert port == ref
     report, _state_, restored = port
     assert report[-1] and restored and report[1] == fetched
+
+
+# (mode, row family, cells lost, row read degraded or None for a repair)
+# of CORE (9, 6, 3): every caller of the fixer's codec, one case each
+ONE_PATH = {
+    "core": ("core", None, [(0, 2), (1, 2)], None),
+    "hdfs_raid": ("hdfs_raid", None, [(1, 3), (1, 5)], None),
+    "hdfs_raid_opt": ("hdfs_raid_opt", None, [(1, 3), (1, 5)], None),
+    "lrc-local": ("core", "lrc", [(0, 0)], None),
+    "lrc-global": ("core", "lrc", [(0, 8)], None),
+    "read-row-decode": ("core", None, [(0, 2), (2, 2)], 0),
+    "read-vertical": ("core", None, [(0, 2)], 0),
+}
+
+
+def _one_path(s, mode, fam, cells, read_row):
+    """Two groups, the same cells lost in each, repaired (or read degraded)
+    one after the other by one fixer: the bytes that came out of the
+    first, read after the second overwrote the fixer's buffers; on the
+    port also whether every codec call read the reused source buffer and
+    whether any array that came out of the first shares its memory."""
+    code = s.pc.CoreCode(9, 6, 3)
+    store = s.bs.BlockStore(num_nodes=60)
+    family = None if fam is None else s.planner.make_family(code, fam, **s.dev)
+    for g in range(2):
+        if family is None:
+            make_group(s, code, store, group_id=f"g{g}", seed=40 + g)
+            continue
+        objects = np.random.default_rng(40 + g).integers(0, 256, (1, code.k, 1024),
+                                                         dtype=np.uint8)
+        store.put_group(f"g{g}", np.asarray(family.encode_group(objects)))
+    fixer = _fixer(s, store, code, mode, family=family)
+    staged = []
+    if s.dev:
+        measure = fixer._measure
+
+        def spy(fn, *args):
+            src = args[-1]
+            staged.append(isinstance(src, torch.Tensor) and src.untyped_storage().data_ptr()
+                          == fixer._sources.buf.untyped_storage().data_ptr())
+            return measure(fn, *args)
+
+        fixer._measure = spy
+    out, reports = [], []
+    for g in ("g0", "g1"):
+        for r, c in cells:
+            store.drop_block((g, r, c))
+        if read_row is None:
+            reports.append(_report(fixer.fix_group(g)))
+            out.append([store.get((g, r, c)) for r, c in cells])
+        else:
+            data, rep = fixer.degraded_read(g, read_row)
+            reports.append(_report(rep))
+            out.append([data])
+    first = [a.tobytes() for a in out[0]]
+    shared = None
+    if s.dev:
+        bufs = [fixer._sources.buf.numpy(), fixer._rebuilt.buf.numpy()]
+        shared = any(np.shares_memory(a, b) for a in out[0] for b in bufs)
+    return (first, reports), (staged, shared)
+
+
+@pytest.mark.parametrize("case", list(ONE_PATH))
+def test_every_codec_call_stages_in_the_reused_buffer(case):
+    (ref, _), (port, (staged, shared)) = both(_one_path, *ONE_PATH[case])
+    assert port == ref
+    assert all(rep[-1] for rep in port[1])
+    assert staged and all(staged) and shared is False
 
 
 def _beyond_rs(s):
